@@ -1,0 +1,428 @@
+"""Single-sync level program at one worker (DESIGN.md §8).
+
+One mining level runs as ONE stretch of device work queued on the
+current stream — the port of ``repro.core.level_step._level_program``:
+
+  1. pass-1 support counting   (the fused kernel, or the plain join)
+  2. the shuffle               (identity collectives at W=1,
+                                ``mapreduce.reduce_supports``)
+  3. survivor compaction       (verdict-masked prefix-sum rank, one
+                                scatter; survivor metadata gathered to the
+                                front, padded to a static cap S)
+  4. the audit word            (device-side invariant checks, §14)
+  5. pass-2 materialization    (child OLs for the S compact slots)
+  6. the wire                  (supports | scalars | perm | checksum)
+
+Nothing in it reads a device value back before the wire: the host learns
+the survivor count from the wire itself, so pass 2 runs over all S slots
+and masks the invalid ones (the JAX program's ``lax.cond`` skip has no
+eager counterpart).  The host receives exactly ONE device→host transfer
+per level, the int32 wire (see ``repro.core.level_step`` for the
+layouts; with one worker the sharded layout is the dense one):
+
+  [0:Cp]      global support per (padded) candidate — with ``packed``,
+              two uint16 supports per int32 word (ceil(Cp/2) words)
+  [+0]        true survivor count (may exceed the cap S — driver retries)
+  [+1]        overflow (matches dropped by the M cap, survivors only)
+  [+2]        rebalanced flag (0/1)
+  [+3]        imbalance, 16.16 fixed point
+  [+4]        audit word (0 = every check passed)
+  [+5:-1]     the (NP,) partition permutation that was applied
+  [-1]        checksum word over everything before it
+
+The wire must equal the JAX package's word for word.  Its arithmetic is
+wrapping uint32; PyTorch does not shift or multiply ``uint32`` on the
+CPU, so the words are held in int64 masked to 32 bits, and every product
+is split into 16-bit halves so that no intermediate overflows int64.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kernels.fused_level import DEFAULT_TILE_C
+from ..kernels.ops import (device_local_supports, fused_level_supports,
+                           fused_level_supports_packed, is_fused_backend)
+from ..runtime.errors import WireIntegrityError
+from .buckets import bucket_size
+from .candgen import pad_schedule, schedule_candidates
+from .embedding import LevelOL, materialize_one
+from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
+
+__all__ = ["LevelWire", "LevelOutputs", "PendingLevel", "dispatch_level",
+           "unpack_wire", "reassemble_wire", "wire_words",
+           "wire_checksum", "level_program", "AUDIT_MONOTONIC",
+           "AUDIT_COMPACT", "AUDIT_RANGE", "AUDIT_NKEEP"]
+
+_IMBAL_FX = 1 << 16
+
+# wire scalar words per shard: n_keep | overflow | rebalanced |
+# imbalance | audit
+_N_SCALARS = 5
+
+# audit-word bit flags (device-side invariant checks, 0 = clean)
+AUDIT_MONOTONIC = 1     # child support exceeds its parent's support
+AUDIT_COMPACT = 2       # a valid compact slot holds a non-survivor
+AUDIT_RANGE = 4         # support negative or above the DB graph count
+AUDIT_NKEEP = 8         # survivor count exceeds the real candidate count
+
+# the JAX package's checksum constants (word i contributes
+# (w_i ^ i*SALT) * MIX, all in wrapping uint32; the final >> 1 makes the
+# value fit int32)
+_CSUM_SALT = 0x9E3779B1
+_CSUM_MIX = 0x85EBCA77
+_MASK32 = 0xFFFFFFFF
+
+_WIRE_FETCH_ATTEMPTS = 3
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 ``a`` in [0, 2^32) and a constant ``b``
+    below 2^32, without any int64 overflow (16-bit split of ``b``)."""
+    lo, hi = b & 0xFFFF, b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _u32_to_i32(w: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) reinterpreted as int32 bit patterns."""
+    return (w - ((w >> 31) & 1) * (1 << 32)).to(torch.int32)
+
+
+def wire_checksum(wire: torch.Tensor) -> torch.Tensor:
+    """Checksum word (int32, 0-dim) of an int32 wire body — bit-identical
+    to ``repro.core.level_step.wire_checksum``."""
+    u = wire.to(torch.int64) & _MASK32
+    idx = torch.arange(u.shape[0], dtype=torch.int64, device=u.device)
+    mixed = _mul32(u ^ _mul32(idx, _CSUM_SALT), _CSUM_MIX)
+    return ((mixed.sum() & _MASK32) >> 1).to(torch.int32)
+
+
+def wire_words(cp: int, n_partitions: int, n_shards: int = 1,
+               packed: bool = False) -> int:
+    """Total int32 words of the wire: ``n_shards`` shards of
+    [gsup slice | 5 scalars | perm | checksum]."""
+    if cp % n_shards:
+        raise ValueError(f"Cp={cp} not divisible into {n_shards} shards")
+    cs = cp // n_shards
+    gw = -(-cs // 2) if packed else cs
+    return n_shards * (gw + _N_SCALARS + n_partitions + 1)
+
+
+def reassemble_wire(host: np.ndarray, n_partitions: int,
+                    n_shards: int = 1, *, packed: bool = False,
+                    cp: Optional[int] = None) -> Optional[np.ndarray]:
+    """Verify a fetched wire's per-shard checksums and reassemble the
+    dense body ``[gsup (Cp) | scalars | perm]`` (checksums stripped).
+    Returns None when any shard fails its checksum (the caller
+    re-fetches).  With ``packed`` the checksum is verified over the
+    packed words, and only then are the supports expanded to int32."""
+    shards = host.reshape(n_shards, -1)
+    for s in shards:
+        if int(wire_checksum(torch.from_numpy(s[:-1].copy()))) != int(s[-1]):
+            return None
+    if not packed:
+        cs = shards.shape[1] - (_N_SCALARS + n_partitions + 1)
+        return np.concatenate([shards[:, :cs].reshape(-1), shards[0, cs:-1]])
+    if cp is None:
+        raise ValueError("packed wire reassembly needs cp")
+    cs = cp // n_shards                                # supports per shard
+    gw = -(-cs // 2)                                   # packed words
+    u = shards[:, :gw].astype(np.uint32)
+    lo = (u & np.uint32(0xFFFF)).astype(np.int32)
+    hi = (u >> np.uint32(16)).astype(np.int32)
+    gsup = np.stack([lo, hi], axis=-1).reshape(n_shards, -1)[:, :cs]
+    return np.concatenate([gsup.reshape(-1), shards[0, gw:-1]])
+
+
+@dataclasses.dataclass
+class LevelWire:
+    """Host view of the single per-level transfer."""
+
+    gsup: np.ndarray        # (C,) int32 — global supports, canonical order
+    n_keep: int             # true survivor count (may exceed the cap)
+    overflow: int           # matches dropped by the M cap (survivors only)
+    rebalanced: bool
+    imbalance: float
+    perm: np.ndarray        # (NP,) applied partition permutation
+    audit: int = 0          # device audit bit flags (0 = clean)
+
+
+@dataclasses.dataclass
+class LevelOutputs:
+    """Device-resident results of one level."""
+
+    wire: LevelWire
+    pol: torch.Tensor       # (NP, S, G, M, K') — compact survivor OLs
+    pmask: torch.Tensor     # (NP, S, G, M)
+
+
+def _pack_wire(gsup, n_keep, overflow, do_reb, imbal, audit, perm, *,
+               packed: bool) -> torch.Tensor:
+    g = gsup.to(torch.int64)
+    if packed:
+        # two uint16 supports per int32 word (lossless: the driver only
+        # packs when every support fits 16 bits); the checksum covers
+        # the PACKED words
+        u = g & _MASK32
+        if u.shape[0] % 2:
+            u = torch.cat([u, u.new_zeros(1)])
+        g = _u32_to_i32((u[0::2] | (u[1::2] << 16)) & _MASK32)
+    scalars = torch.stack([
+        n_keep.to(torch.int32), overflow.to(torch.int32),
+        do_reb.to(torch.int32), (imbal * _IMBAL_FX).to(torch.int32),
+        audit.to(torch.int32)])
+    body = torch.cat([g.to(torch.int32), scalars, perm.to(torch.int32)])
+    return torch.cat([body, wire_checksum(body).reshape(1)])
+
+
+def level_program(c_real: int, psup: torch.Tensor, *args,
+                  minsup: int, backend: str, reduce: str,
+                  max_embeddings: int, survivor_cap: int,
+                  child_width: Optional[int], sharded: bool,
+                  packed: bool = False, n_graphs: int = -1,
+                  n_workers: int = 1):
+    """One level's device work: returns ``(wire, ol, mask)``, all on the
+    stores' device, without reading anything back to the host.
+
+    ``args`` is ``(sched_meta, tiles, inv, pol, pmask, src, dst, emask)``
+    for the fused backends and ``(meta, meta_host, pol, pmask, src, dst,
+    emask)`` for "ref" (``meta_host`` is the same (Cp, 5) candidate table
+    as host rows, for the plain join's loop).
+    The true candidate count ``c_real`` masks the padded rows.
+
+    The straggler rebalance needs more than one worker: at W=1 the
+    imbalance is computed (it is 1.0) and the wire reports no rebalance
+    and the identity permutation, as the JAX program does."""
+    if sharded and reduce != "reduce_scatter":
+        raise ValueError(
+            f"the sharded wire needs reduce='reduce_scatter' (each worker "
+            f"owns a support slice), got reduce={reduce!r}")
+    S = survivor_cap
+    if is_fused_backend(backend):
+        sched_meta, tiles, inv, pol, pmask, src, dst, emask = args
+        if packed:
+            sup_pp, emb_s, _vbits = fused_level_supports_packed(
+                sched_meta, tiles, pol, pmask, src, dst, emask)
+        else:
+            sup_pp, emb_s = fused_level_supports(
+                sched_meta, tiles, pol, pmask, src, dst, emask)
+        local_sup = sup_pp.sum(0, dtype=torch.int32).index_select(0, inv)
+        emb_pp = emb_s.index_select(1, inv)                  # (PP, Cp)
+        meta_can = sched_meta.index_select(0, inv)[:, :5]
+    else:
+        meta_can, meta_host, pol, pmask, src, dst, emask = args
+        local_sup, _, emb_pp = device_local_supports(
+            meta_host, pol, pmask, src, dst, emask, packed=packed)
+    dev = pol.device
+
+    gsup, verdict = reduce_supports(local_sup, minsup, reduce, packed=packed)
+    Cp = verdict.shape[0]
+    real = torch.arange(Cp, device=dev) < c_real
+    keep = (verdict != 0) & real
+
+    # verdict-masked prefix-sum compaction: survivor i's compact slot is
+    # its rank among survivors; one scatter inverts rank -> id.  Ranks
+    # past the cap and non-survivors land in the extra slot S, dropped.
+    rank = keep.to(torch.int32).cumsum(0, dtype=torch.int32) - 1
+    n_keep = rank[-1] + 1
+    dest = torch.where(keep & (rank < S), rank, S).to(torch.int64)
+    surv = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_(
+        0, dest, torch.arange(Cp, dtype=torch.int64, device=dev))[:S]
+    cmeta = meta_can.index_select(0, surv)                   # (S, 5)
+    valid_s = torch.arange(S, device=dev) < n_keep           # (S,)
+
+    # continuous invariant audit (§14): psup is PARENT-indexed (-1 =
+    # unknown / padding); each candidate gathers its parent's support
+    # through the meta parent column
+    par = meta_can[:, 0].to(torch.int64)
+    Pn = psup.shape[0]
+    psc = torch.where((par >= 0) & (par < Pn),
+                      psup.index_select(0, par.clamp(0, Pn - 1)), -1)
+    gs_a = gsup.to(torch.int32)
+    mono_bad = ((gs_a > psc) & real & (psc >= 0)).sum()
+    if n_graphs >= 0:
+        rng_bad = (((gs_a < 0) | (gs_a > n_graphs)) & real).sum()
+    else:
+        rng_bad = torch.zeros((), dtype=torch.int64, device=dev)
+    comp_bad = (valid_s & ~keep.index_select(0, surv)).sum()
+    audit = (torch.where(mono_bad > 0, AUDIT_MONOTONIC, 0)
+             | torch.where(comp_bad > 0, AUDIT_COMPACT, 0)
+             | torch.where(rng_bad > 0, AUDIT_RANGE, 0)
+             | torch.where(n_keep > c_real, AUDIT_NKEEP, 0))
+
+    # pass 2 over every compact slot; invalid (cap-padding) slots are
+    # computed and masked to the PAD fill — skipping them would need
+    # n_keep on the host before the wire
+    PP, _, G, _, K = pol.shape
+    Mc = max_embeddings
+    Wk = child_width if child_width is not None else K + 1
+    ol = torch.full((PP, S, G, Mc, Wk), -1, dtype=torch.int32, device=dev)
+    mask = torch.zeros((PP, S, G, Mc), dtype=torch.bool, device=dev)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    parents = LevelOL(pol, pmask)
+    for s in range(S):
+        ch, mk, over = materialize_one(parents, src, dst, emask, cmeta[s],
+                                       max_embeddings=Mc, out_width=Wk)
+        v = valid_s[s]
+        ol[:, s] = ch.masked_fill_(~v, -1)
+        mask[:, s] = mk & v
+        overflow += over * v
+
+    cost_pp = (emb_pp * real[None, :]).sum(1, dtype=torch.int32)
+    NP = cost_pp.shape[0]
+    imbal = worker_imbalance(cost_pp, n_workers)
+    do_reb = torch.zeros((), dtype=torch.bool, device=dev)
+    perm = torch.arange(NP, dtype=torch.int32, device=dev)
+    wire = _pack_wire(gsup, n_keep, overflow, do_reb, imbal, audit, perm,
+                      packed=packed)
+    return wire, ol, mask
+
+
+def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
+                n_partitions: int, n_shards: int = 1, packed: bool = False,
+                cp: Optional[int] = None) -> np.ndarray:
+    """The ONE device→host transfer of a clean level, integrity-checked.
+    A checksum mismatch triggers a bounded re-fetch from the device
+    buffer, then :class:`WireIntegrityError` — never silently wrong
+    supports."""
+    for _ in range(_WIRE_FETCH_ATTEMPTS):
+        host = wire_d.cpu().numpy()
+        body = reassemble_wire(host, n_partitions, n_shards,
+                               packed=packed, cp=cp)
+        if body is not None:
+            return body
+    raise WireIntegrityError(
+        f"level wire failed checksum {_WIRE_FETCH_ATTEMPTS}x"
+        + (f" at level {level}" if level is not None else ""))
+
+
+def unpack_wire(wire: np.ndarray, C: int, Cp: int, n_partitions: int
+                ) -> LevelWire:
+    """Decode the (checksum-stripped) wire body by explicit offsets."""
+    return LevelWire(
+        gsup=wire[:C],
+        n_keep=int(wire[Cp]),
+        overflow=int(wire[Cp + 1]),
+        rebalanced=bool(wire[Cp + 2]),
+        imbalance=float(wire[Cp + 3]) / _IMBAL_FX,
+        perm=wire[Cp + 5: Cp + 5 + n_partitions],
+        audit=int(wire[Cp + 4]),
+    )
+
+
+@dataclasses.dataclass
+class PendingLevel:
+    """A level whose device work is queued on the current stream but not
+    synced.  ``finish()`` performs the level's single blocking
+    device→host copy — the driver calls it only after it has done the
+    NEXT level's host candidate generation in the shadow of this level's
+    device work (DESIGN.md §11)."""
+
+    wire_d: torch.Tensor
+    pol: torch.Tensor
+    pmask: torch.Tensor
+    C_real: int
+    Cp: int
+    n_partitions: int
+    n_shards: int              # 1 = dense wire; W = sharded
+    level: Optional[int]
+    packed: bool = False       # gsup slices ship 2x uint16 per word
+
+    def finish(self) -> LevelOutputs:
+        """Block on the wire (the one host sync), verify + decode it."""
+        wire = unpack_wire(
+            _fetch_wire(self.wire_d, self.level, self.n_partitions,
+                        self.n_shards, self.packed, self.Cp),
+            self.C_real, self.Cp, self.n_partitions)
+        return LevelOutputs(wire, self.pol, self.pmask)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array → device tensor without a synchronizing copy: pinned
+    staging and a non-blocking copy on CUDA, a plain copy on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()
+
+
+def dispatch_level(
+    mmesh: MiningMesh,
+    meta_p: np.ndarray,       # (Cp, 5) padded candidate metadata (host)
+    C_real: int,              # unpadded candidate count
+    pol: torch.Tensor,        # (NP, P, G, M, K)
+    pmask: torch.Tensor,
+    src: torch.Tensor,        # (NP, T, G, F)
+    dst: torch.Tensor,
+    emask: torch.Tensor,
+    *,
+    minsup: int,
+    backend: str,
+    reduce: str,
+    max_embeddings: int,
+    survivor_cap: int,
+    child_width: Optional[int] = None,
+    sched_floor: Optional[int] = None,
+    level: Optional[int] = None,
+    sharded: bool = False,
+    packed: bool = False,
+    tile_c: Optional[int] = None,
+    psup: Optional[np.ndarray] = None,
+    n_graphs: int = -1,
+) -> PendingLevel:
+    """Queue one level's device work WITHOUT a host sync.
+
+    The fused backends build the parent-grouped tile schedule host-side
+    (only the real rows are scheduled; the row axis is bucketed with
+    whole invalid tiles when ``sched_floor`` is set, and the inverse
+    permutation of the padded candidates parks on an invalid row).
+    ``tile_c`` pins the schedule's tile width (None = the default 8).
+    ``psup`` is the parent-indexed support vector for the audit word
+    (-1 = unknown), padded to the store's parent axis; ``n_graphs`` arms
+    the support-range check (-1 disables it).  Returns a
+    :class:`PendingLevel`; the caller owns retry policy."""
+    Cp = meta_p.shape[0]
+    n_partitions = pol.shape[0]
+    W = mmesh.n_workers
+    if sharded and Cp % W:
+        raise ValueError(
+            f"sharded wire needs the padded candidate count divisible by "
+            f"the worker count, got Cp={Cp}, W={W}")
+    dev = pol.device
+    P_axis, T_axis = pol.shape[1], src.shape[1]
+    psup_p = np.full((P_axis,), -1, np.int32)
+    if psup is not None:
+        n_par = min(len(psup), P_axis)
+        psup_p[:n_par] = np.asarray(psup, np.int32)[:n_par]
+    meta_p = np.asarray(meta_p, np.int32)
+    kw = dict(minsup=minsup, backend=backend, reduce=reduce,
+              max_embeddings=max_embeddings, survivor_cap=survivor_cap,
+              child_width=child_width, sharded=sharded, packed=packed,
+              n_graphs=n_graphs, n_workers=W)
+    if is_fused_backend(backend):
+        tc = tile_c if tile_c is not None else DEFAULT_TILE_C
+        if sched_floor is not None:
+            sched = schedule_candidates(meta_p[:C_real], tc,
+                                        max_inflation=float("inf"))
+            rows = bucket_size(sched.meta.shape[0], sched_floor)
+        else:
+            sched = schedule_candidates(meta_p[:C_real], tc)
+            rows = sched.meta.shape[0]
+        sched = pad_schedule(sched, rows_to=rows, inv_to=Cp)
+        if (sched.tiles[:, 0] >= P_axis).any() or (
+                sched.tiles[:, 1] >= T_axis).any():
+            raise ValueError("schedule references a parent or triple "
+                             "outside the stores")
+        args = (upload(sched.meta, dev), upload(sched.tiles, dev),
+                upload(sched.inv.astype(np.int64), dev))
+    else:
+        args = (upload(meta_p, dev), meta_p)
+    wire_d, new_pol, new_pmask = level_program(
+        C_real, upload(psup_p, dev), *args, pol, pmask, src, dst, emask,
+        **kw)
+    return PendingLevel(wire_d, new_pol, new_pmask, C_real, Cp,
+                        n_partitions,
+                        W if sharded else 1, level, packed)

@@ -1,0 +1,832 @@
+"""MIRAGE iterative mining driver (paper §IV-B/C, Figs. 9-10), single-sync
+pipeline at one worker.
+
+Phases:
+  1. data partition  — filter infrequent edges, split into NP partitions
+                       (NP ≫ workers, paper Fig. 20), pad uniformly;
+  2. preparation     — per-partition static structures (edge-OL) + the
+                       level-1 pattern OLs, moved to the device once;
+  3. mining          — the host enumerates canonical candidates from F_k
+                       (tiny metadata); the device runs the whole level as
+                       ONE stretch of queued work (`core/level_step.py`):
+                       fused join, shuffle, on-device survivor compaction,
+                       audit word and child-OL materialization — the host
+                       syncs exactly once per level, on the wire.  Repeat
+                       until no frequent patterns.
+
+This is the port of ``repro.core.mining`` for ``pipeline="single_sync"``
+at W=1.  ``MirageConfig`` keeps every field of the JAX package; the
+"legacy" and "device_loop" pipelines and device candgen are later
+slices (ROADMAP queue A items 9 and 11) and raise
+``NotImplementedError``.  The watchdog, the fault hooks and the
+supervisor (queue A item 10) are not part of this slice.
+
+Donation: PyTorch's eager ops never consume an input buffer, so the
+parent store stays valid for every retry and ``donate`` /
+``donation_rearm_levels`` change nothing here — the JAX package's
+rebuild-from-checkpoint path after an armed-donation retry is not needed.
+
+Checkpoints use the JAX package's format (``runtime/checkpoint.py``), so
+a run checkpointed by either package resumes in the other.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels.ops import (Backend, check_backend, default_backend,
+                           is_fused_backend)
+from ..runtime import checkpoint as ckpt
+from .auditor import Auditor
+from .buckets import BucketSpec, bucket_size, round_up_multiple
+from .candgen import (Candidate, EdgeAlphabet, filter_speculative,
+                      generate_candidates, schedule_candidates)
+from .dfscode import Code, array_to_code, code_to_array
+from .embedding import build_edge_ol, candidate_meta, level1_ol
+from .graphdb import Graph
+from .level_step import dispatch_level
+from .mapreduce import MiningMesh, map_materialize
+from .partition import make_partitions
+
+__all__ = ["MirageConfig", "LevelStats", "DistMiningResult", "Mirage",
+           "decode_saved_levels"]
+
+PIPELINES = ("single_sync", "device_loop", "legacy")
+CANDGENS = ("host", "device")
+
+# share of the card's free memory one level's child OL store may take:
+# the rest holds the parent store and pass-2's per-slot temporaries
+_STORE_MEMORY_SHARE = 0.5
+
+
+@dataclasses.dataclass
+class MirageConfig:
+    minsup: float | int                 # fraction of |G| or absolute count
+    n_partitions: int = 8
+    scheme: int | str = 2               # partition scheme (1|2|"density")
+    max_size: Optional[int] = None      # max pattern edges (None = to fixpoint)
+    max_embeddings: int = 32            # M cap (exactness valve escalates)
+    max_embeddings_limit: int = 512     # escalation ceiling
+    max_occ: Optional[int] = None       # F pad (None = derive from data)
+    backend: Optional[Backend] = None   # kernels backend (None = auto)
+    # shuffle collective; None resolves per pipeline in __post_init__:
+    # "reduce_scatter" for single_sync (fig19: faster AND lighter on the
+    # wire), "psum" for legacy (the paper-faithful differential oracle)
+    reduce: Optional[str] = None        # "psum" | "reduce_scatter" | None
+    # sharded wire layout (DESIGN.md §11): each worker transfers only its
+    # C/W support slice.  None = auto (on whenever the reduce_scatter
+    # shuffle runs under single_sync — the slice already lives there)
+    sharded_wire: Optional[bool] = None
+    # bit-packed support path (DESIGN.md §12): per-graph verdict words
+    # from the kernel with AND+popcount support counting, bit-lane verdict gathers, and
+    # a 2x-uint16 gsup wire slice.  None = auto (on for single_sync);
+    # the legacy pipeline stays dense — it is the differential oracle.
+    # Regardless of the flag, packing engages only when every support
+    # fits uint16 (total graph count < 2^16)
+    packed_support: Optional[bool] = None
+    # double-buffer host candidate generation for level k+1 in the
+    # shadow of level k's in-flight device program (DESIGN.md §11)
+    overlap_candgen: bool = True
+    # speculation cost gate: the speculative candgen runs over the FULL
+    # candidate superset, |C_k|/|F_k| times the survivor-only work — at
+    # sparse survival that dwarfs the device time it hides behind.  The
+    # driver estimates its cost from a running per-parent candgen rate
+    # and skips the speculation for any level where the estimate
+    # exceeds the hiding window max(previous level's device seconds,
+    # this floor)
+    overlap_spec_window: float = 0.05
+    checkpoint_dir: Optional[str] = None
+    escalate_on_overflow: bool = True
+    rebalance_threshold: float = 1.25   # max/mean partition cost trigger
+    rebalance: bool = True
+    pipeline: str = "single_sync"   # "single_sync"|"device_loop"|"legacy"
+    # candidate generation: "host" (the python generator) or "device"
+    # (candgen.device_candidates dispatched per level — the benchable
+    # stepping stone toward device_loop, which always generates on
+    # device INSIDE its while_loop).  Device candgen statically disables
+    # the speculative-overlap machinery; a per-level budget/state
+    # overflow falls back to the host generator for that level only.
+    candgen: str = "host"
+    # ---- device_loop static budgets (DESIGN.md §13) ------------------
+    # canonical candidate budget CB per loop iteration (None = auto:
+    # 4x the host-generated start-level candidate count, bucketed —
+    # candgen typically peaks one or two levels past the start); the raw
+    # structural-slot budget before canonicality filtering (None = auto:
+    # 4x CB); the canonicality machine's bounded state count.  Any
+    # overflow trips a bail flag and the run falls back to single_sync.
+    device_c_budget: Optional[int] = None
+    device_raw_budget: Optional[int] = None
+    device_max_states: int = 64
+    # checkpoint cadence: re-invoke the (single) compiled run program
+    # every k levels, fetching wire + OL store at each boundary for the
+    # canonical checkpoint (None = no mid-run checkpoints — exactly one
+    # device→host transfer for the whole run)
+    device_loop_ckpt_every: Optional[int] = None
+    # > 0: replace the while_loop with this many cond-gated body
+    # applications per program invocation (the unrolled stepping stone)
+    device_loop_unroll: int = 0
+    donate: bool = True                 # donate OL buffers when retry-free
+    # re-arm donation after this many consecutive clean levels even when
+    # a retry is possible, rebuilding parents from checkpoint if the
+    # gamble loses (0 disables; needs checkpoint_dir to ever engage)
+    donation_rearm_levels: int = 3
+    predict_survivors: bool = True      # shrink the survivor cap from history
+    survivor_slack: float = 2.0         # cap = slack * predicted survivors
+    # ---- shape bucketing (single_sync pipeline; DESIGN.md §9) --------
+    # round the per-level shapes (Cp, S, P, M, K, fused-schedule rows)
+    # up to the geometric family floor·2^i (the JAX package's families:
+    # the wire's length depends on Cp; see core/buckets.py).  Padded
+    # slots are masked end-to-end.
+    bucket_shapes: bool = True
+    bucket_c_floor: int = 64            # candidate axis Cp (+ sched rows)
+    bucket_s_floor: int = 32            # survivor cap S / parent axis P
+    bucket_k_floor: int = 8             # OL vertex-slot axis K
+    # ---- continuous invariant auditor + deadlines (DESIGN.md §14) ----
+    # device audit word folded into the wire (monotonicity, compaction,
+    # range, survivor-count) + sampled host spot checks each level
+    # (downward closure, DFS-code canonicality); violations raise
+    # AuditError, a state-class fault the supervisor heals by replay
+    audit: bool = True
+    audit_samples: int = 2              # host spot checks per level
+    # watchdog phase-deadline policy: deadline = max(floor, slack·EWMA)
+    # of recent level wall-times; floor=0 with no EWMA sample = unarmed
+    # (the first level usually contains compilation)
+    level_deadline_floor: float = 0.0
+    level_deadline_slack: float = 8.0
+
+    def __post_init__(self):
+        if self.pipeline not in PIPELINES:
+            raise ValueError(f"pipeline={self.pipeline!r} must be one of "
+                             f"{PIPELINES}")
+        if self.candgen not in CANDGENS:
+            raise ValueError(f"candgen={self.candgen!r} must be one of "
+                             f"{CANDGENS}")
+        if self.n_partitions < 1:
+            raise ValueError(
+                f"n_partitions={self.n_partitions} must be >= 1")
+        if self.reduce is None:
+            self.reduce = ("psum" if self.pipeline == "legacy"
+                           else "reduce_scatter")
+        if self.reduce not in ("psum", "reduce_scatter"):
+            raise ValueError(f"reduce={self.reduce!r} must be 'psum' or "
+                             f"'reduce_scatter'")
+        if self.packed_support and self.pipeline == "legacy":
+            raise ValueError(
+                "packed_support=True is unavailable on pipeline='legacy' — "
+                "the legacy pipeline stays dense as the differential oracle")
+        if self.pipeline == "device_loop":
+            if self.max_size is None:
+                raise ValueError(
+                    "pipeline='device_loop' needs a finite max_size — the "
+                    "while_loop carry (codes, OL store, run outputs) is "
+                    "shaped by the run's maximum pattern size")
+            if not self.bucket_shapes:
+                raise ValueError(
+                    "pipeline='device_loop' requires bucket_shapes=True — "
+                    "its static budgets are sized in the bucket families")
+            if not self.escalate_on_overflow:
+                raise ValueError(
+                    "pipeline='device_loop' requires escalate_on_overflow "
+                    "— the loop mines at one uniform M and reruns doubled "
+                    "on overflow, matching only the exact (escalated) "
+                    "host semantics")
+        if self.level_deadline_slack < 1.0:
+            raise ValueError(
+                f"level_deadline_slack={self.level_deadline_slack} must "
+                f"be >= 1 — a sub-unit slack trips on every level")
+        if self.pipeline == "device_loop" or self.candgen == "device":
+            # device candgen makes host speculation structurally
+            # impossible mid-loop — disable it statically (satellite:
+            # the cost gate is bypassed, no PendingLevel speculation)
+            self.overlap_candgen = False
+
+
+@dataclasses.dataclass
+class LevelStats:
+    level: int
+    n_candidates: int
+    n_frequent: int
+    overflow: int
+    seconds: float
+    map_seconds: float
+    rebalanced: bool
+    imbalance: float                    # max/mean partition embed-count
+    escalations: int = 0                # M-cap doublings the valve performed
+    # host candgen seconds for the NEXT level, spent in the shadow of
+    # this level's in-flight device program (0.0 when not overlapped)
+    candgen_seconds: float = 0.0
+    survivor_cap: int = 0               # S the level program compacted into
+    retried: bool = False               # level took a materialize-only retry
+    audit: int = 0                      # device audit word (0 = checks held)
+
+
+@dataclasses.dataclass
+class DistMiningResult:
+    levels: list[list[Code]]
+    supports: dict[Code, int]
+    stats: list[LevelStats]
+    alphabet: EdgeAlphabet
+    minsup: int
+    total_overflow: int
+
+    @property
+    def frequent(self) -> dict[Code, int]:
+        return self.supports
+
+    def counts(self) -> list[int]:
+        return [len(l) for l in self.levels]
+
+
+def decode_saved_levels(state: dict) -> tuple[list[list[Code]],
+                                              dict[Code, int]]:
+    """Decode a checkpoint's (levels, supports) arrays back into codes —
+    shared by resume and the supervisor's partial-result cut."""
+    levels = [[array_to_code(a) for a in lvl] for lvl in state["levels"]]
+    supports = {array_to_code(a): int(s) for a, s in
+                zip(state["support_codes"], state["support_vals"])}
+    return levels, supports
+
+
+
+
+@dataclasses.dataclass
+class _LevelOutcome:
+    """What one mined level hands back to the driver loop."""
+
+    gsup: np.ndarray            # (C,) global supports, canonical order
+    keep: np.ndarray            # survivor candidate indices
+    pol: torch.Tensor           # next-level OL store (compact survivors)
+    pmask: torch.Tensor
+    overflow: int
+    max_embeddings: int         # M after any escalation
+    imbalance: float
+    map_seconds: float
+    escalations: int
+    retried: bool = False       # level took a materialize-only retry
+    survivor_cap: int = 0       # S the level program was dispatched with
+    # candidates for the NEXT level, speculatively generated from ALL of
+    # this level's candidates while the device work was in flight (None =
+    # not speculated — regenerate from F_{k+1} as usual)
+    spec_cands: Optional[list[Candidate]] = None
+    candgen_seconds: float = 0.0
+    audit: int = 0              # device audit word from the wire
+
+
+class Mirage:
+    """The miner.  ``device=None`` runs on the CUDA device and raises
+    when there is none; ``device="cpu"`` runs the plain PyTorch versions
+    of the kernels (the tests do).  ``mesh=None`` is the one-worker
+    mesh."""
+
+    def __init__(self, config: MirageConfig,
+                 mesh: Optional[MiningMesh] = None,
+                 device: Optional[torch.device | str] = None):
+        if config.pipeline == "legacy":
+            raise NotImplementedError(
+                "pipeline='legacy' is not ported yet (ROADMAP queue A "
+                "item 9)")
+        if config.pipeline == "device_loop" or config.candgen == "device":
+            raise NotImplementedError(
+                "pipeline='device_loop' and candgen='device' are not "
+                "ported yet (ROADMAP queue A item 11)")
+        check_backend(config.backend)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "repro_torch.Mirage runs on a CUDA device and none is "
+                    "available; pass device='cpu' to run the plain PyTorch "
+                    "versions of the kernels on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested but CUDA "
+                               f"is not available")
+        self.cfg = config
+        self.mesh = mesh or MiningMesh.single_device()
+        self.backend: Backend = config.backend or default_backend(self.device)
+        # per-run invariant auditor (§14); rebuilt by each fit()
+        self.auditor: Optional[Auditor] = None
+        self._ckpt_meta: dict = {}
+        if config.n_partitions % self.mesh.n_workers:
+            raise ValueError(
+                f"n_partitions={config.n_partitions} must be a multiple of "
+                f"the worker count {self.mesh.n_workers}")
+
+    # ------------------------------------------------------------------
+    def _effective_partitions(self, n_graphs: int) -> int:
+        """Clamp n_partitions to the database size (a partition with no
+        graphs would silently pad) while staying a multiple of the
+        worker count."""
+        cfg, W = self.cfg, self.mesh.n_workers
+        if n_graphs == 0 or cfg.n_partitions <= n_graphs:
+            return cfg.n_partitions
+        clamped = max(W, n_graphs - n_graphs % W)
+        if clamped > n_graphs:
+            raise ValueError(
+                f"database has {n_graphs} graphs but the mesh has {W} "
+                f"workers — need at least one graph per worker")
+        return clamped
+
+    # ------------------------------------------------------------------
+    def fit(self, graphs: Sequence[Graph], *,
+            resume: bool = False) -> DistMiningResult:
+        cfg = self.cfg
+
+        # peek the checkpoint first: the partition count is baked into
+        # the saved OL store
+        resume_state = resume_meta = None
+        if resume and cfg.checkpoint_dir and ckpt.latest_step(cfg.checkpoint_dir):
+            try:
+                resume_state, resume_meta = ckpt.load_step(cfg.checkpoint_dir)
+            except FileNotFoundError:
+                # every on-disk step failed integrity verification and
+                # was reaped — a fresh start is the only sound option
+                resume_state = resume_meta = None
+
+        # ---- phase 1: partition (host) --------------------------------
+        if resume_state is not None:
+            n_parts = int(resume_state["pol"].shape[0])
+            if n_parts % self.mesh.n_workers:
+                raise ValueError(
+                    f"checkpoint holds {n_parts} partitions, not a "
+                    f"multiple of the current worker count "
+                    f"{self.mesh.n_workers} — resume on a compatible mesh")
+        else:
+            n_parts = self._effective_partitions(len(graphs))
+        part = make_partitions(graphs, cfg.minsup, n_parts,
+                               scheme=cfg.scheme)
+        alphabet, minsup = part.alphabet, part.minsup
+        triples = sorted({t for c in alphabet.canonical()
+                          for t in (c, (c[2], c[1], c[0]))})
+        if not triples:
+            return DistMiningResult([], {}, [], alphabet, minsup, 0)
+
+        n_graphs = part.n_graphs
+        self.auditor = (Auditor(minsup=minsup, n_graphs=n_graphs,
+                                samples=cfg.audit_samples)
+                        if cfg.audit else None)
+        self._ckpt_meta = {"audited": bool(cfg.audit),
+                           "minsup": int(minsup),
+                           "n_graphs": int(n_graphs)}
+
+        # ---- phase 2: preparation (host, once) -------------------------
+        G = max((len(p) for p in part.partitions), default=1)
+        eols = [build_edge_ol(p, triples, pad_graphs=G, max_occ=cfg.max_occ)
+                for p in part.partitions]
+        F = max(e.src.shape[-1] for e in eols)
+        src = np.stack([_pad_f(e.src, F, -1) for e in eols])       # (NP,T,G,F)
+        dst = np.stack([_pad_f(e.dst, F, -1) for e in eols])
+        emask = np.stack([_pad_f(e.mask, F, False) for e in eols])
+        eol0 = eols[0]   # triple_index identical across partitions
+
+        codes = [((0, 1, a, e, b),) for (a, e, b) in alphabet.canonical()]
+        # level-1 embeddings/graph are bounded by F (the edge-OL width), so
+        # M1 = F is exact by construction — no silent truncation at level 1.
+        bk = self._buckets()
+        M1 = max(cfg.max_embeddings, F)
+        if bk is not None:
+            M1 = bk.embeddings(M1, cfg.max_embeddings)
+        lvl1 = [level1_ol(codes, e, max_embeddings=M1) for e in eols]
+        pol = np.stack([l.ol.numpy() for l in lvl1])               # (NP,P,G,M,2)
+        pmask = np.stack([l.mask.numpy() for l in lvl1])
+        del lvl1
+        if bk is not None:
+            # bucket the level-1 store into the (P, K) family the child
+            # stores live in
+            pol, pmask = _pad_store(
+                pol, pmask, p_to=bucket_size(len(codes), bk.s_floor),
+                k_to=bk.vertex_slots(2))
+
+        supports: dict[Code, int] = {}
+        for c in codes:
+            ti = eol0.triple_index[c[0][2:]]
+            supports[c] = int(emask[:, ti].any(axis=-1).sum())
+        levels: list[list[Code]] = [list(codes)]
+        stats: list[LevelStats] = []
+        total_overflow = 0
+        start_level = 1
+        M = cfg.max_embeddings
+
+        # ---- resume -----------------------------------------------------
+        if resume_state is not None:
+            state = resume_state
+            levels, supports = decode_saved_levels(state)
+            pol, pmask = state["pol"], state["pmask"]
+            start_level = int(resume_meta["step"])
+            M = int(state["max_embeddings"])
+            total_overflow = int(state["total_overflow"])
+            # checkpoints store the CANONICAL (unpadded) survivor store;
+            # re-bucket it into the CURRENT config's family
+            pol, pmask = self._repad_saved(pol, pmask)
+
+        pol, pmask, src_d, dst_d, emask_d = (
+            torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            for x in (pol, pmask, src, dst, emask))
+        del src, dst
+
+        # per-level (n_parents, n_candidates, n_keep) history drives the
+        # next level's compaction cap from the measured per-parent fanout
+        history: list[tuple[int, int, int]] = []
+        # bit-packed support path: the 2x-uint16 wire slice needs every
+        # global support to fit uint16 — supports are bounded by |G|
+        packed = self._packed_support(part.n_graphs)
+        # fused tile_c, pinned ONCE per run from the level-2 candidate
+        # grouping
+        tile_pin: Optional[int] = None
+
+        # ---- phase 3: iterative mining ---------------------------------
+        k = start_level
+        # overlapped candgen (DESIGN.md §11): each level speculatively
+        # generates the NEXT level's candidates while its device work is
+        # in flight; the narrowed result carries over here
+        cands: Optional[list[Candidate]] = None
+        # speculation cost gate inputs: EWMA per-parent candgen rate and
+        # the last level's device-only seconds
+        cand_rate: Optional[float] = None
+        prev_dev = 0.0
+        while cfg.max_size is None or k < cfg.max_size:
+            t0 = time.perf_counter()
+            if cands is None:
+                cands = generate_candidates(levels[-1], alphabet)
+                if levels[-1]:
+                    r = (time.perf_counter() - t0) / len(levels[-1])
+                    cand_rate = (r if cand_rate is None
+                                 else 0.5 * (cand_rate + r))
+            if not cands:
+                break
+            n_parents = len(levels[-1])
+            meta = candidate_meta(cands, eol0)
+            C = meta.shape[0]
+            Cp = (bk.candidates(C, self.mesh.n_workers) if bk is not None
+                  else round_up_multiple(C, self.mesh.n_workers))
+            meta_p = np.concatenate(
+                [meta, np.tile([[0, 0, 0, 1, 0]], (Cp - C, 1))]).astype(np.int32)
+
+            # parent supports for the device audit word (§14), one int32
+            # per parent pattern (-1 = unknown)
+            psup = None
+            if cfg.audit:
+                psup = np.array(
+                    [supports.get(p, -1) for p in levels[-1]], np.int32)
+
+            # child patterns (size k+1) have at most k+2 vertices; the
+            # bucketed width reuses the parent store's while it fits
+            child_width = (bk.vertex_slots(k + 2, int(pol.shape[-1]))
+                           if bk is not None else None)
+            if (tile_pin is None and bk is not None
+                    and is_fused_backend(self.backend)):
+                # level 2 is the widest, most parent-diverse grouping the
+                # run will see; later levels reuse its tile width
+                tile_pin = schedule_candidates(meta).tile_c
+            out = self._level_single_sync(
+                meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
+                minsup, M, history, child_width, level=k + 1,
+                packed=packed, tile_c=tile_pin, cands=cands,
+                alphabet=alphabet, cand_rate=cand_rate,
+                spec_window=max(prev_dev, cfg.overlap_spec_window),
+                psup=psup, n_graphs=n_graphs)
+            if self.auditor is not None:
+                self.auditor.check_wire(k + 1, out.audit)
+                if len(out.keep):
+                    self.auditor.check_level(
+                        k + 1, cands=cands, keep=out.keep, gsup=out.gsup,
+                        parents=levels[-1], supports=supports)
+            prev_dev = max(out.map_seconds - out.candgen_seconds, 0.0)
+            if out.spec_cands is not None and cands:
+                r = out.candgen_seconds / len(cands)
+                cand_rate = (r if cand_rate is None
+                             else 0.5 * (cand_rate + r))
+            M = out.max_embeddings
+            total_overflow += out.overflow
+
+            if len(out.keep) == 0:
+                stats.append(LevelStats(k + 1, C, 0, out.overflow,
+                                        time.perf_counter() - t0,
+                                        out.map_seconds, False, out.imbalance,
+                                        out.escalations, out.candgen_seconds,
+                                        survivor_cap=out.survivor_cap,
+                                        retried=out.retried,
+                                        audit=out.audit))
+                break
+
+            pol, pmask = out.pol, out.pmask
+            levels.append([cands[i].code for i in out.keep])
+            for i in out.keep:
+                supports[cands[i].code] = int(out.gsup[i])
+            history.append((n_parents, C, len(out.keep)))
+
+            stats.append(LevelStats(k + 1, C, len(out.keep), out.overflow,
+                                    time.perf_counter() - t0,
+                                    out.map_seconds, False,
+                                    out.imbalance, out.escalations,
+                                    out.candgen_seconds,
+                                    survivor_cap=out.survivor_cap,
+                                    retried=out.retried, audit=out.audit))
+
+            if cfg.checkpoint_dir:
+                self._save(cfg.checkpoint_dir, k + 1, levels, supports,
+                           pol, pmask, M, total_overflow)
+            # narrow this level's speculative superset to the surviving
+            # parents — provably equal to generate_candidates(F_{k+1})
+            cands = (filter_speculative(out.spec_cands, out.keep)
+                     if out.spec_cands is not None else None)
+            k += 1
+
+        return DistMiningResult(levels, supports, stats, alphabet, minsup,
+                                total_overflow)
+
+    # ------------------------------------------------------------------
+    def _repad_saved(self, pol, pmask):
+        """Re-bucket a checkpoint's canonical (padding-stripped) survivor
+        store into the CURRENT config's shape family.  No-op without
+        bucketing."""
+        bk = self._buckets()
+        if bk is None:
+            return pol, pmask
+        return _pad_store(
+            pol, pmask,
+            p_to=bucket_size(pol.shape[1], bk.s_floor),
+            m_to=bk.embeddings(pol.shape[3], self.cfg.max_embeddings),
+            k_to=bk.vertex_slots(pol.shape[-1]))
+
+    # ------------------------------------------------------------------
+    def _sharded_wire(self) -> bool:
+        """The sharded-wire tri-state: explicit config wins; auto means on
+        whenever the reduce_scatter shuffle runs (at one worker the
+        sharded layout is the dense one)."""
+        cfg = self.cfg
+        if cfg.sharded_wire is not None:
+            return cfg.sharded_wire
+        return cfg.reduce == "reduce_scatter"
+
+    # ------------------------------------------------------------------
+    def _packed_support(self, n_graphs: int) -> bool:
+        """The packed-support tri-state: explicit config wins; auto means
+        on.  Either way packing additionally requires every global
+        support to fit uint16 (the wire ships 2 supports per 32-bit
+        word) — supports are bounded by the database's graph count."""
+        cfg = self.cfg
+        on = (cfg.packed_support if cfg.packed_support is not None
+              else True)
+        return bool(on) and n_graphs < (1 << 16)
+
+    # ------------------------------------------------------------------
+    def _buckets(self) -> Optional[BucketSpec]:
+        """The run's shape-bucket family, or None when bucketing is off."""
+        cfg = self.cfg
+        if not cfg.bucket_shapes:
+            return None
+        return BucketSpec(cfg.bucket_c_floor, cfg.bucket_s_floor,
+                          cfg.bucket_k_floor)
+
+    # ------------------------------------------------------------------
+    def _survivor_cap(self, C: int, Cp: int,
+                      history: list[tuple[int, int, int]]) -> int:
+        """Static survivor cap for the level program's compaction stage
+        (the JAX package's policy): predict the next survivor count from
+        the previous level's measured per-parent fanout — ``keep_prev /
+        parents_prev`` survivors per parent times the ``keep_prev``
+        parents this level mines from, scaled by the configured slack —
+        or a quarter of the candidate space when there is no history
+        yet.  Bucketed, the prediction is rounded to the S family and
+        clamped at the (bucketed) Cp ceiling.  A miss costs one
+        materialize-only retry."""
+        bk = self._buckets()
+        if not self.cfg.predict_survivors:
+            # no prediction = no cap miss allowed: S must cover every
+            # real candidate
+            return Cp if bk is None else bk.survivors(C, Cp)
+        if not history:
+            s = min(Cp, max(32, -(-Cp // 4)))
+        else:
+            parents_prev, _cands_prev, keep_prev = history[-1]
+            fanout = keep_prev / max(parents_prev, 1)
+            pred = self.cfg.survivor_slack * fanout * max(keep_prev, 1)
+            # n_keep <= C always, so C is a sound extra clamp
+            s = min(Cp, C, max(1, int(np.ceil(pred)) + 16))
+        if bk is not None:
+            s = bk.survivors(s, Cp)
+        return s
+
+    # ------------------------------------------------------------------
+    def _free_device_bytes(self) -> Optional[int]:
+        """Bytes a new store may take on the device now: the driver's
+        free memory plus the caching allocator's unused blocks.  None on
+        the CPU, where stores are not clamped."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + (torch.cuda.memory_reserved(self.device)
+                       - torch.cuda.memory_allocated(self.device))
+
+    def _memory_cap(self, S: int, pol: torch.Tensor, max_embeddings: int,
+                    child_width: Optional[int]) -> int:
+        """The survivor cap, clamped by :func:`memory_survivor_cap` to
+        what the device holds now (no clamp on the CPU)."""
+        free = self._free_device_bytes()
+        if free is None:
+            return S
+        NP, _, G, _, K = pol.shape
+        width = child_width if child_width is not None else K + 1
+        return memory_survivor_cap(
+            S, NP * G * max_embeddings * (4 * width + 1), free,
+            self._buckets())
+
+    # ------------------------------------------------------------------
+    def _level_single_sync(self, meta_p, meta, C, pol, pmask, src, dst,
+                           emask, minsup, M, history,
+                           child_width: Optional[int] = None, *,
+                           level: Optional[int] = None,
+                           cands: Optional[list[Candidate]] = None,
+                           alphabet: Optional[EdgeAlphabet] = None,
+                           cand_rate: Optional[float] = None,
+                           spec_window: Optional[float] = None,
+                           packed: bool = False,
+                           tile_c: Optional[int] = None,
+                           psup: Optional[np.ndarray] = None,
+                           n_graphs: int = -1
+                           ) -> _LevelOutcome:
+        """One level: the device work is queued without a sync, the host
+        speculates the next level's candidates while it runs (when the
+        cost gate lets it: ``cand_rate`` seconds/parent × the superset
+        size must fit ``spec_window``), then blocks once on the wire.
+
+        Exceptional paths re-use the still-valid pass-1 supports and
+        re-materialize from the preserved parents: a survivor-cap miss
+        re-materializes the full survivor set, and the escalation valve
+        re-materializes at a doubled M."""
+        cfg = self.cfg
+        bk = self._buckets()
+        Cp = meta_p.shape[0]
+        S = self._memory_cap(self._survivor_cap(C, Cp, history), pol, M,
+                             child_width)
+        t_map = time.perf_counter()
+        pending = dispatch_level(
+            self.mesh, meta_p, C, pol, pmask, src, dst, emask,
+            minsup=minsup, backend=self.backend, reduce=cfg.reduce,
+            max_embeddings=M, survivor_cap=S, child_width=child_width,
+            sched_floor=bk.c_floor if bk is not None else None,
+            level=level, sharded=self._sharded_wire(),
+            packed=packed, tile_c=tile_c, psup=psup, n_graphs=n_graphs)
+        # the overlap window: the device work is in flight, the host is
+        # free — speculate the next level's candidates now
+        spec_cands = None
+        cand_secs = 0.0
+        if cfg.overlap_candgen and cands is not None and alphabet is not None:
+            window = (cfg.overlap_spec_window if spec_window is None
+                      else spec_window)
+            est = (cand_rate or 0.0) * len(cands)
+            if est <= window:
+                t_cand = time.perf_counter()
+                spec_cands = generate_candidates([c.code for c in cands],
+                                                 alphabet)
+                cand_secs = time.perf_counter() - t_cand
+        out = pending.finish()
+        w = out.wire
+        map_secs = time.perf_counter() - t_map
+
+        keep = np.flatnonzero(w.gsup >= minsup)
+        n = int(w.n_keep)
+        overflow = w.overflow
+        escalations = 0
+        if bk is None:
+            # the kernels take contiguous stores
+            new_pol = out.pol[:, :max(n, 1)].contiguous()
+            new_pmask = out.pmask[:, :max(n, 1)].contiguous()
+        else:
+            # keep the full S-bucket arena so the next level's shapes
+            # stay in the family
+            new_pol, new_pmask = out.pol, out.pmask
+
+        escalatable = (cfg.escalate_on_overflow
+                       and M < cfg.max_embeddings_limit)
+        retried = bool(n > 0 and (n > S or (overflow > 0 and escalatable)))
+        if retried:
+            del out, new_pol, new_pmask     # release the discarded store
+            if overflow > 0 and escalatable:
+                # the level just proved M too small: skip the known-bad
+                # M before re-materializing
+                M = min(M * 2, cfg.max_embeddings_limit)
+                escalations += 1
+            new_pol, new_pmask, overflow, M, esc = self._materialize_exact(
+                meta[keep], pol, pmask, src, dst, emask, M,
+                out_width=child_width)
+            escalations += esc
+            if bk is not None:
+                # re-bucket the retried store so the next level stays in
+                # the family
+                new_pol, new_pmask = _pad_store(
+                    new_pol, new_pmask, p_to=bk.survivors(len(keep), Cp))
+
+        return _LevelOutcome(
+            gsup=w.gsup, keep=keep, pol=new_pol, pmask=new_pmask,
+            overflow=overflow, max_embeddings=M, imbalance=w.imbalance,
+            map_seconds=map_secs, escalations=escalations,
+            retried=retried, survivor_cap=S, spec_cands=spec_cands,
+            candgen_seconds=cand_secs, audit=int(w.audit))
+
+    # ------------------------------------------------------------------
+    def _materialize_exact(self, keep_meta, pol, pmask, src, dst, emask, M,
+                           out_width: Optional[int] = None):
+        """Materialize survivors; escalate M until no overflow (exactness
+        valve — keeps device supports == paper semantics)."""
+        cfg = self.cfg
+        escalations = 0
+        while True:
+            new_pol, new_pmask, overflow = map_materialize(
+                keep_meta, pol, pmask, src, dst, emask,
+                max_embeddings=M, out_width=out_width)
+            if (overflow == 0 or not cfg.escalate_on_overflow
+                    or M >= cfg.max_embeddings_limit):
+                return new_pol, new_pmask, overflow, M, escalations
+            del new_pol, new_pmask
+            M = min(M * 2, cfg.max_embeddings_limit)
+            escalations += 1
+
+    def _save(self, root, level, levels, supports, pol, pmask, M, overflow):
+        """Checkpoint in the JAX package's format: the CANONICAL store
+        (bucket padding stripped — pattern axis to the true survivor
+        count, vertex axis to the widest real pattern), so a resume under
+        other bucket floors, or in the other package, re-pads into its
+        own family."""
+        max_edges = max(len(c) for l in levels for c in l)
+        n_real = max(len(levels[-1]), 1)
+        pol_np = pol[:, :n_real].cpu().numpy()
+        pmask_np = pmask[:, :n_real].cpu().numpy()
+        if self._buckets() is not None:
+            kw = 1 + max(max(i, j) for c in levels[-1]
+                         for (i, j, _a, _e, _b) in c)
+            pol_np = pol_np[..., :kw]
+        state = {
+            "levels": [[code_to_array(c, max_edges) for c in l]
+                       for l in levels],
+            "support_codes": [code_to_array(c, max_edges) for c in supports],
+            "support_vals": np.asarray(list(supports.values()), np.int64),
+            "pol": pol_np,
+            "pmask": pmask_np,
+            "max_embeddings": M,
+            "total_overflow": overflow,
+        }
+        ckpt.save_step(root, level, state,
+                       metadata={"kind": "mirage-mining",
+                                 **self._ckpt_meta})
+
+
+def memory_survivor_cap(S: int, slot_bytes: int, free_bytes: int,
+                        bk: Optional[BucketSpec]) -> int:
+    """Clamp the survivor cap ``S`` so the (NP, S, G, M, W) child store,
+    ``slot_bytes`` per survivor slot, takes at most
+    ``_STORE_MEMORY_SHARE`` of ``free_bytes``.  The JAX package has no
+    such clamp.  Bucketed, the clamp is the largest S-family member that
+    fits; when not even the family floor fits, the store leaves the
+    family and takes the count that fits (at least 1).  A cap below the
+    level's true survivor count takes the exact materialize-only retry,
+    which builds the store of every survivor: a level whose survivors
+    alone do not fit the card ends in CUDA's out-of-memory error."""
+    fit = int(free_bytes * _STORE_MEMORY_SHARE) // slot_bytes
+    if fit >= S:
+        return S
+    if bk is None or fit < bk.s_floor:
+        return max(1, fit)
+    s = bk.s_floor
+    while s * 2 <= fit:
+        s *= 2
+    return s
+
+
+def _pad_store(pol, pmask, *, p_to: Optional[int] = None,
+               m_to: Optional[int] = None, k_to: Optional[int] = None):
+    """Grow an OL store (NP, P, G, M, K)/(NP, P, G, M) into its bucket:
+    PAD(-1) vertex entries, all-False masks.  Padded slots are inert —
+    no candidate references a padded parent, masked embeddings never
+    join, PAD vertex slots never match.  numpy arrays or torch tensors."""
+
+    def grow(a, fill, targets):
+        shape = list(a.shape)
+        for axis, to in targets:
+            if to is not None and to > shape[axis]:
+                shape[axis] = to
+        if list(a.shape) == shape:
+            return a
+        if isinstance(a, np.ndarray):
+            out = np.full(shape, fill, a.dtype)
+        else:
+            out = torch.full(shape, fill, dtype=a.dtype, device=a.device)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+
+    pol = grow(pol, -1, ((1, p_to), (3, m_to), (4, k_to)))
+    pmask = grow(pmask, False, ((1, p_to), (3, m_to)))
+    return pol, pmask
+
+
+def _pad_f(a: np.ndarray, F: int, fill) -> np.ndarray:
+    pad = F - a.shape[-1]
+    if pad == 0:
+        return a
+    widths = [(0, 0)] * (a.ndim - 1) + [(0, pad)]
+    return np.pad(a, widths, constant_values=fill)

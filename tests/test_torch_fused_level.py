@@ -1,0 +1,222 @@
+"""The fused join+support kernels' plain PyTorch versions against the JAX
+package's Pallas kernels (interpret mode on the CPU) and its bitset
+oracle, plus the embedding data plane they are built on.  Every
+comparison is exact.  The CUDA kernels themselves run only on a card:
+``test_cuda_kernels_equal_plain_versions`` is marked ``cuda`` and skips
+on a host without one.  The JAX package comes in through the ``ref``
+fixture, so that on a GPU machine without JAX
+``pytest -m cuda tests/test_torch_fused_level.py`` still imports this
+file and runs the CUDA cases."""
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import embedding as temb
+from repro_torch.core.candgen import pad_schedule, schedule_candidates
+from repro_torch.kernels import fused_level as tfl
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.bitset import n_words
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's embedding module and kernel dispatch."""
+    from repro.core import embedding
+    from repro.kernels import ops
+    return types.SimpleNamespace(emb=embedding, ops=ops)
+
+
+def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8):
+    """Random-but-consistent join inputs (ids in [0, 32), PAD -1),
+    deliberately misaligned (C % tile_c != 0, G % 32 != 0)."""
+    pol = rng.integers(0, 32, (P, G, M, K)).astype(np.int32)
+    pmask = rng.random((P, G, M)) < 0.7
+    pol = np.where(rng.random((P, G, M, K)) < 0.15, -1, pol)
+    src = rng.integers(0, 32, (T, G, F)).astype(np.int32)
+    dst = rng.integers(0, 32, (T, G, F)).astype(np.int32)
+    emask = rng.random((T, G, F)) < 0.7
+    src = np.where(emask, src, -1)
+    dst = np.where(emask, dst, -1)
+    meta = np.stack([rng.integers(0, P, C), rng.integers(0, K, C),
+                     rng.integers(0, K, C), rng.integers(0, 2, C),
+                     rng.integers(0, T, C)], axis=1).astype(np.int32)
+    return meta, pol, pmask, src, dst, emask
+
+
+def _stack_pp(rng, PP, **shape):
+    meta, pol, pmask, src, dst, emask = _random_level(rng, **shape)
+    if PP == 1:
+        return meta, pol[None], pmask[None], src[None], dst[None], emask[None]
+    pols = np.stack([np.roll(pol, i, axis=1) for i in range(PP)])
+    pmasks = np.stack([np.roll(pmask, i, axis=1) for i in range(PP)])
+    return (meta, pols, pmasks, np.stack([src] * PP), np.stack([dst] * PP),
+            np.stack([emask] * PP))
+
+
+# (shape, PP, tile_c, bucket rows, tile_g)
+KERNEL_CASES = [
+    pytest.param(dict(C=9, G=37), 1, 8, None, 128, id="G37"),
+    pytest.param(dict(C=7, G=20), 1, 4, None, 128, id="C7-tc4"),
+    pytest.param(dict(C=9, G=37), 1, 1, None, 128, id="tc1"),
+    pytest.param(dict(C=9, G=37), 1, 2, 32, 128, id="tc2-invalid-tiles"),
+    pytest.param(dict(C=6, P=3, G=24, M=4, K=3, T=3, F=5), 2, 4, None, 128,
+                 id="PP2"),
+    pytest.param(dict(C=12, P=3, G=16, M=6, K=3, T=3, F=6), 1, 4, None, 128,
+                 id="dup-parents"),
+    pytest.param(dict(C=5, G=70, M=4, K=3, T=3, F=5), 1, 8, 16, 64,
+                 id="G70-tail-words"),
+]
+
+
+def _kernel_inputs(shape, PP, tc, rows, seed):
+    rng = np.random.default_rng(seed)
+    meta, pol, pmask, src, dst, emask = _stack_pp(rng, PP, **shape)
+    if shape.get("C") == 12:                      # heavy parent skew
+        meta[:, 0] = np.asarray([1] * 9 + [2] * 3)
+        meta[:, 4] = np.asarray([0] * 6 + [2] * 6)
+    sched = schedule_candidates(meta, tc)
+    if rows is not None:
+        sched = pad_schedule(sched, rows_to=rows, inv_to=len(meta) + 2)
+    return meta, sched, (pol, pmask, src, dst, emask)
+
+
+@pytest.mark.parametrize("shape,PP,tc,rows,tile_g", KERNEL_CASES)
+def test_packed_plain_matches_pallas_interpret(ref, shape, PP, tc, rows,
+                                               tile_g):
+    meta, sched, stores = _kernel_inputs(shape, PP, tc, rows,
+                                         seed=shape["G"] + tc)
+    sup_j, emb_j, vb_j = ref.ops.fused_level_supports_packed(
+        sched.meta, sched.tiles, *stores, tile_g=tile_g, interpret=True)
+    t = [torch.from_numpy(x) for x in (sched.meta, sched.tiles, *stores)]
+    sup_t, emb_t, vb_t = tops.fused_level_supports_packed(*t, tile_g=tile_g)
+    np.testing.assert_array_equal(sup_t.numpy(), np.asarray(sup_j))
+    np.testing.assert_array_equal(emb_t.numpy(), np.asarray(emb_j))
+    assert vb_t.dtype == torch.uint32
+    np.testing.assert_array_equal(vb_t.numpy(), np.asarray(vb_j))
+    # words past n_words(G) (graph-tile padding) are zero
+    np.testing.assert_array_equal(
+        vb_t.numpy()[:, :, n_words(shape["G"]):], 0)
+    # against the per-candidate bitset oracle, in canonical order
+    inv = sched.inv[:len(meta)]
+    for pp in range(PP):
+        sup_o, emb_o, vb_o = ref.emb.support_bits_ref(
+            meta, stores[0][pp], stores[1][pp], stores[2][pp],
+            stores[3][pp], stores[4][pp])
+        np.testing.assert_array_equal(sup_t.numpy()[pp][inv],
+                                      np.asarray(sup_o))
+        np.testing.assert_array_equal(emb_t.numpy()[pp][inv],
+                                      np.asarray(emb_o))
+        np.testing.assert_array_equal(
+            vb_t.numpy()[pp][inv][:, :n_words(shape["G"])],
+            np.asarray(vb_o))
+
+
+@pytest.mark.parametrize("shape,PP,tc,rows,tile_g", KERNEL_CASES)
+def test_dense_plain_matches_pallas_interpret(ref, shape, PP, tc, rows,
+                                              tile_g):
+    _, sched, stores = _kernel_inputs(shape, PP, tc, rows, seed=3)
+    sup_j, emb_j = ref.ops.fused_level_supports(
+        sched.meta, sched.tiles, *stores, tile_g=tile_g, interpret=True)
+    t = [torch.from_numpy(x) for x in (sched.meta, sched.tiles, *stores)]
+    sup_t, emb_t = tops.fused_level_supports(*t)
+    np.testing.assert_array_equal(sup_t.numpy(), np.asarray(sup_j))
+    np.testing.assert_array_equal(emb_t.numpy(), np.asarray(emb_j))
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_reference_joins_match(ref, seed):
+    rng = np.random.default_rng(seed)
+    meta, pol, pmask, src, dst, emask = _random_level(rng, C=9, G=37)
+    sup_j, emb_j, vb_j = ref.emb.support_bits_ref(meta, pol, pmask, src, dst,
+                                               emask)
+    t = [torch.from_numpy(x) for x in (pol, pmask, src, dst, emask)]
+    sup_t, emb_t, vb_t = temb.support_bits_ref(meta, *t)
+    np.testing.assert_array_equal(sup_t.numpy(), np.asarray(sup_j))
+    np.testing.assert_array_equal(emb_t.numpy(), np.asarray(emb_j))
+    np.testing.assert_array_equal(vb_t.numpy(), np.asarray(vb_j))
+    ls_j = ref.emb.local_supports_ref(ref.emb.LevelOL(pol, pmask), src, dst,
+                                   emask, meta)
+    ls_t = temb.local_supports_ref(temb.LevelOL(t[0], t[1]), *t[2:], meta)
+    for a, b in zip(ls_t, ls_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("seed,out_width,mc", [(0, None, 4), (1, 5, 8),
+                                              (2, 4, 2)])
+def test_materialize_matches_reference(ref, seed, out_width, mc):
+    rng = np.random.default_rng(seed)
+    meta, pol, pmask, src, dst, emask = _random_level(rng, C=6, G=9, M=5,
+                                                      K=4, F=6)
+    lvl_j, over_j = ref.emb.materialize_ol(
+        ref.emb.LevelOL(pol, pmask), src, dst, emask, meta,
+        max_embeddings=mc, out_width=out_width)
+    t = [torch.from_numpy(x) for x in (pol, pmask, src, dst, emask)]
+    lvl_t, over_t = temb.materialize_ol(
+        temb.LevelOL(t[0], t[1]), *t[2:], meta, max_embeddings=mc,
+        out_width=out_width)
+    np.testing.assert_array_equal(lvl_t.ol.numpy(), np.asarray(lvl_j.ol))
+    np.testing.assert_array_equal(lvl_t.mask.numpy(),
+                                  np.asarray(lvl_j.mask))
+    np.testing.assert_array_equal(over_t.numpy(), np.asarray(over_j))
+    # one candidate row given as device-style 0-dim tensors
+    ch, mk, ov = temb.materialize_one(
+        temb.LevelOL(t[0], t[1]), *t[2:], torch.from_numpy(meta[2]),
+        max_embeddings=mc, out_width=out_width)
+    np.testing.assert_array_equal(ch.numpy(), np.asarray(lvl_j.ol)[2])
+    assert int(ov) == int(np.asarray(over_j)[2])
+
+
+def test_edge_ol_and_level1_match(ref):
+    from repro_torch.core.graphdb import random_db
+    graphs = random_db(7, seed=4)
+    triples = [(0, 0, 1), (1, 0, 0), (1, 1, 2), (2, 1, 1), (0, 1, 0)]
+    je = ref.emb.build_edge_ol(graphs, triples, pad_graphs=8)
+    te = temb.build_edge_ol(graphs, triples, pad_graphs=8)
+    for a in ("src", "dst", "mask", "triples"):
+        np.testing.assert_array_equal(getattr(te, a), getattr(je, a))
+    codes = [((0, 1, 0, 0, 1),), ((0, 1, 1, 1, 2),)]
+    jl = ref.emb.level1_ol(codes, je, max_embeddings=6)
+    tl = temb.level1_ol(codes, te, max_embeddings=6)
+    np.testing.assert_array_equal(tl.ol.numpy(), np.asarray(jl.ol))
+    np.testing.assert_array_equal(tl.mask.numpy(), np.asarray(jl.mask))
+
+
+def test_wrappers_check_inputs_and_use_plain_versions_on_cpu():
+    _, sched, stores = _kernel_inputs(dict(C=7, G=20), 1, 4, None, 1)
+    t = [torch.from_numpy(x) for x in (sched.meta, sched.tiles, *stores)]
+    tfl.reset_launches()
+    tops.fused_level_supports_packed(*t)
+    tops.fused_level_supports(*t)
+    assert tfl.launches == {"fused_level_packed": 0, "fused_level": 0}
+    bad = list(t)
+    bad[2] = bad[2].to(torch.int64)
+    with pytest.raises(TypeError, match="pol must be int32"):
+        tops.fused_level_supports(*bad)
+    bad = list(t)
+    bad[2] = bad[2].transpose(2, 3)
+    with pytest.raises(ValueError):
+        tops.fused_level_supports(*bad)
+    bad = list(t)
+    bad[0] = bad[0][:-1]
+    with pytest.raises(ValueError, match="multiple of NT"):
+        tops.fused_level_supports(*bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,PP,tc,rows,tile_g", KERNEL_CASES)
+def test_cuda_kernels_equal_plain_versions(shape, PP, tc, rows, tile_g):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: no CUDA device is present")
+    _, sched, stores = _kernel_inputs(shape, PP, tc, rows, seed=7)
+    cpu = [torch.from_numpy(x) for x in (sched.meta, sched.tiles, *stores)]
+    gpu = [x.cuda() for x in cpu]
+    packed = lambda *a: tops.fused_level_supports_packed(*a, tile_g=tile_g)
+    for f in (packed, tops.fused_level_supports):
+        before = dict(tfl.launches)
+        got = f(*gpu)
+        torch.cuda.synchronize()
+        assert sum(tfl.launches.values()) == sum(before.values()) + 1
+        for a, b in zip(got, f(*cpu)):
+            assert torch.equal(a.cpu(), b)

@@ -10,28 +10,40 @@ non-zero, printing no result, when a phase fails, when no CUDA device
 is present, or when the port is not next to it.  Phases:
 
   1. device  — the card's name and power limit, then the kernels' build
-               (nvcc into build/repro_torch_kernels/, timed);
-  2. parity  — both kernels against their plain PyTorch versions on the
-               misaligned small shapes of the tests, exact;
+               (every csrc/*.cu, one nvcc each, in parallel, into
+               build/repro_torch_kernels/, timed);
+  2. parity  — the four kernels against their plain PyTorch versions on
+               misaligned small shapes, exact;
   3. small   — ``Mirage.fit`` on the card against the port's own host
-               oracle ``mine_host`` on two small databases, exact;
+               oracle ``mine_host`` on two small databases, exact, with
+               the fused backend (packed and dense), the two-launch
+               backend "pallas", and the legacy pipeline;
   4. packed  — the main path: one PubChem anticancer screen's scale
                (40,000 molecule-like graphs, ~28 edges) at minsup 15%,
                8 partitions, patterns up to 4 edges, every other
                ``MirageConfig`` field at its default — packed support,
                so the packed kernel runs;
   5. dense   — the Yeast screen's scale (80,000 graphs, >= 2^16, so
-               packing switches itself off and the dense kernel runs).
+               packing switches itself off and the dense kernel runs);
+  6. two-launch — phase 4's database and config with backend "pallas":
+               the two-launch kernels (join, then reduction) under a
+               packed shuffle and wire, as in the JAX package;
+  7. legacy  — the same database with ``pipeline="legacy"`` and backend
+               "pallas": the two-program pipeline, several host round
+               trips per level by design.
 
-Phases 4 and 5 count kernel launches (set to 0 just before the run,
-read just after), run every level dispatch under
+Every main run counts kernel launches (set to 0 just before the run,
+read just after) and checks the frequent set against ``mine_host``
+(phases 6 and 7 against phase 4's oracle result).  The single-sync runs
+(4, 5, 6) run every level dispatch under
 ``torch.cuda.set_sync_debug_mode("error")`` so that the wire fetch is
-the level's only device→host transfer, require every level's audit
-word to be 0, and check the frequent set against ``mine_host``.  Then a
-second fit of the same database, cut to level 2 and not counted, hands
-its level-2 kernel inputs to the kernel and its plain version, which
-must agree and are both timed (CUDA events).  The line before the last
-is the kernels' JSON record; the last line is the run's JSON verdict.
+the level's only device→host transfer, and require every level's audit
+word to be 0.  After phases 4, 5 and 6 a second fit of the same
+database, cut to level 2 and not counted, hands its level-2 kernel
+inputs to the kernels and their plain versions, which must agree and
+are both timed (CUDA events), with the one PyTorch call that computes
+the same function where there is one.  The line before the last is the
+kernels' JSON record; the last line is the run's JSON verdict.
 """
 from __future__ import annotations
 
@@ -50,8 +62,17 @@ INT_OPS_PER_S = 67e12         # H100 SXM 32-bit rate outside the tensor cores
 REPLACES = {
     "fused_level_packed": "src/repro/kernels/fused_level.py:263",
     "fused_level": "src/repro/kernels/fused_level.py:194",
+    "embedding_join": "src/repro/kernels/embedding_join.py:98",
+    "support_count": "src/repro/kernels/support_count.py:41",
 }
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_level.cu"
+SOURCES = {
+    "fused_level_packed": "src/repro_torch/kernels/csrc/fused_level.cu",
+    "fused_level": "src/repro_torch/kernels/csrc/fused_level.cu",
+    "embedding_join": "src/repro_torch/kernels/csrc/two_launch.cu",
+    "support_count": "src/repro_torch/kernels/csrc/two_launch.cu",
+}
+# the 40K main run's configuration (phases 4, 6 and 7)
+MAIN_CFG = dict(minsup=0.15, n_partitions=8, max_size=4)
 
 
 class SmokeFailure(RuntimeError):
@@ -117,6 +138,14 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The larger of the memory time and the operation time, in ms, and
+    which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def level_bound(args, packed: bool, outputs) -> tuple[float, str, dict]:
     """Least time the card could take for one call: the larger of the
     bytes this call's data needs moved over the memory rate, and the
@@ -159,19 +188,74 @@ def level_bound(args, packed: bool, outputs) -> tuple[float, str, dict]:
         if valid_rows[ct]:
             p, t = int(tiles_h[ct, 0]), int(tiles_h[ct, 1])
             ops += int(valid_rows[ct]) * int((nm[:, p] * nf[:, t]).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", {"bytes": nbytes, "ops": ops})
+    return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
+
+
+def join_bound(args, outputs) -> tuple[float, str, dict]:
+    """Least time of one two-launch join call, by B1's rule: the meta
+    rows in full; for each parent a candidate references, its mask rows
+    in full plus the K slots of every set embedding; for each such
+    triple, its mask rows in full plus src and dst of every set
+    occurrence; each output written once.  Compares: per candidate,
+    every set parent embedding against every set edge occurrence of the
+    same graph."""
+    import torch
+    meta, pol, pmask, src, dst, emask = args
+    rows = meta.cpu()
+    parents = sorted({int(p) for p in rows[:, 0]})
+    triples = sorted({int(t) for t in rows[:, 4]})
+    PP, _, G, M, K = pol.shape
+    F = src.shape[-1]
+    nm = pmask.to(torch.int64).sum(-1)           # (PP, P, G) set embeddings
+    nf = emask.to(torch.int64).sum(-1)           # (PP, T, G) set occurrences
+    nbytes = meta.numel() * 4
+    nbytes += len(parents) * PP * G * M * pmask.element_size()
+    nbytes += int(nm[:, parents].sum()) * K * 4
+    nbytes += len(triples) * PP * G * F * emask.element_size()
+    nbytes += int(nf[:, triples].sum()) * (4 + 4)
+    nbytes += sum(o.numel() * o.element_size() for o in outputs)
+    pairs = (nm[:, :, None, :] * nf[:, None, :, :]).sum((0, 3))  # (P, T)
+    ops = int(pairs[rows[:, 0].long(), rows[:, 4].long()].sum())
+    return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
+
+
+def reduce_bound(matched, outputs) -> tuple[float, str, dict]:
+    """Least time of one reduction call: both (PP, C, G) inputs read
+    once, both (PP, C) outputs written once; one add per input
+    element."""
+    nbytes = 2 * matched.numel() * 4
+    nbytes += sum(o.numel() * o.element_size() for o in outputs)
+    ops = 2 * matched.numel()
+    return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
 
 
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
 
+def counter_modules():
+    """The kernel wrapper modules, each with its ``launches`` counts."""
+    from repro_torch.kernels import embedding_join, fused_level, support_count
+    return fused_level, embedding_join, support_count
+
+
+def launch_counts() -> dict:
+    return {k: v for mod in counter_modules() for k, v in mod.launches.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in counter_modules():
+        mod.reset_launches()
+
+
+def restore_launch_counts(before: dict) -> None:
+    for mod in counter_modules():
+        mod.launches.update({k: before[k] for k in mod.launches})
+
+
 def phase_device():
     import torch
-    from repro_torch.kernels import fused_level as fl
+    from repro_torch.kernels import build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -182,11 +266,11 @@ def phase_device():
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    path, log = fl.build_kernels()
-    say(f"phase 1 build: {KERNEL_SOURCE} -> {path.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.2f}s")
+    path, log = build.build_kernels()
+    say(f"phase 1 build: {', '.join(sorted(set(SOURCES.values())))} -> "
+        f"{path.relative_to(ROOT)} in {time.perf_counter() - t0:.2f}s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry" in line:
             say(f"  ptxas: {line.strip()}")
     return card
 
@@ -195,8 +279,11 @@ def phase_parity_small():
     import numpy as np
     import torch
     from repro_torch.core.candgen import pad_schedule, schedule_candidates
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_join import embedding_join
     from repro_torch.kernels.ops import (fused_level_supports,
                                          fused_level_supports_packed)
+    from repro_torch.kernels.support_count import support_count
     cases = [  # (shape, tile_c, bucket rows) — the tests' misaligned sweeps
         (dict(C=7, G=20), 8, None),
         (dict(C=9, G=37), 8, None),
@@ -226,8 +313,45 @@ def phase_parity_small():
             check(err == 0, f"{f.__name__} disagrees with its plain version "
                             f"on case {i} (max abs err {err})")
             worst = max(worst, err)
-    say(f"phase 2 parity: {len(cases)} misaligned cases x 2 kernels equal "
-        f"their plain versions exactly (max abs err {worst})")
+    say(f"phase 2 parity: {len(cases)} misaligned cases x 2 fused kernels "
+        f"equal their plain versions exactly (max abs err {worst})")
+
+    two = [  # (shape, what the case forces)
+        (dict(C=9, G=37), None),                      # G % 32 != 0, G < 128
+        (dict(C=1, G=45), None),                      # one candidate
+        (dict(C=8, G=33, K=3), "backward"),           # every row backward
+        (dict(C=8, G=33, K=3), "forward"),            # every row forward
+        (dict(C=6, G=24, T=3), "no-masks"),           # all-zero masks
+        (dict(C=6, P=3, G=70, M=4, K=3, T=3, F=5, PP=3), None),
+        (dict(C=7, G=20, M=3, K=2, F=200), None),     # narrow block (F)
+        (dict(C=70, G=300, PP=2), None),              # G past one block
+    ]
+    worst = 0
+    for i, (shape, force) in enumerate(two):
+        rng = np.random.default_rng(200 + i)
+        meta, pol, pmask, src, dst, emask = random_level(rng, **shape)
+        if force == "backward":
+            meta[:, 3] = 0
+        elif force == "forward":
+            meta[:, 3] = 1
+        elif force == "no-masks":
+            pmask[:] = False
+            emask[:] = False
+        cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+               (meta, pol, pmask, src, dst, emask)]
+        gpu = [x.cuda() for x in cpu]
+        joined = embedding_join(*gpu)
+        reduced = support_count(*joined)
+        torch.cuda.synchronize()
+        want_j = ref.embedding_join_ref(*cpu)
+        want_r = ref.support_count_ref(*want_j)
+        err = max(max_abs_err([x.cpu() for x in joined], want_j),
+                  max_abs_err([x.cpu() for x in reduced], want_r))
+        check(err == 0, f"the two-launch kernels disagree with their plain "
+                        f"versions on case {i} (max abs err {err})")
+        worst = max(worst, err)
+    say(f"phase 2 parity: {len(two)} misaligned cases x 2 two-launch "
+        f"kernels equal their plain versions exactly (max abs err {worst})")
 
 
 def phase_small():
@@ -238,46 +362,55 @@ def phase_small():
            ("random_db(18, seed=42)",
             random_db(18, n_vertices=6, extra_edge_prob=0.35, n_vlabels=3,
                       n_elabels=2, seed=42), 5, 3)]
+    runs = [dict(backend="fused"), dict(backend="fused", packed_support=False),
+            dict(backend="pallas"),
+            dict(backend="pallas", pipeline="legacy")]
     for name, graphs, minsup, max_size in dbs:
         want = sorted((c, i.support) for c, i in
                       mine_host(graphs, minsup, max_size=max_size)
                       .frequent.items())
-        for packed in (None, False):
+        for kw in runs:
             res = Mirage(MirageConfig(minsup=minsup, max_size=max_size,
-                                      n_partitions=2, backend="fused",
-                                      packed_support=packed)).fit(graphs)
+                                      n_partitions=2, **kw)).fit(graphs)
             check(sorted(res.supports.items()) == want,
-                  f"{name} packed_support={packed}: the card's frequent set "
-                  f"differs from mine_host")
+                  f"{name} {kw}: the card's frequent set differs from "
+                  f"mine_host")
         say(f"phase 3 small: {name} minsup={minsup} max_size={max_size}: "
-            f"{len(want)} frequent subgraphs, equal to mine_host (packed "
-            f"and dense)")
+            f"{len(want)} frequent subgraphs, equal to mine_host (fused "
+            f"packed and dense, two-launch, legacy two-launch)")
 
 
-def main_run(label: str, n_graphs: int, seed: int, packed: bool):
-    """Drive Mirage.fit at full scale and check it; returns (result,
-    launches, seconds, graphs).  Nothing of the run is held past a
-    level, so the peak memory and the survivor caps are the miner's
-    own."""
+def make_db(label: str, n_graphs: int, seed: int):
     import numpy as np
-    import torch
-    import repro_torch.core.level_step as level_step
-    import repro_torch.core.mining as mining
     from repro_torch.core.graphdb import pubchem_like_db
-    from repro_torch.core.host_miner import mine_host
-    from repro_torch.kernels import fused_level as fl
-
     t0 = time.perf_counter()
     graphs = pubchem_like_db(n_graphs, seed=seed, avg_edges=28)
     n_edges = [g.n_edges for g in graphs]
     say(f"phase {label}: pubchem_like_db({n_graphs}, seed={seed}, "
         f"avg_edges=28): mean {np.mean(n_edges):.2f} edges, max "
         f"{max(n_edges)} ({time.perf_counter() - t0:.1f}s to generate)")
-    cfg = mining.MirageConfig(minsup=0.15, n_partitions=8, max_size=4)
+    return graphs
+
+
+def main_run(label: str, graphs, packed: bool, want=None, **cfg_kw):
+    """Drive Mirage.fit at full scale (``MAIN_CFG`` plus ``cfg_kw``) and
+    check it against ``mine_host`` (``want``, computed here when None);
+    returns (result, launches, seconds, want).  Nothing of the run is
+    held past a level, so the peak memory and the survivor caps are the
+    miner's own.  A single-sync run has every level dispatch under sync
+    debug mode 'error' and must make one wire fetch per level."""
+    import torch
+    import repro_torch.core.level_step as level_step
+    import repro_torch.core.mining as mining
+    from repro_torch.core.host_miner import mine_host
+
+    n_graphs = len(graphs)
+    cfg = mining.MirageConfig(**MAIN_CFG, **cfg_kw)
     miner = mining.Mirage(cfg)
     check(miner._packed_support(n_graphs) == packed,
           f"packed support should be {'on' if packed else 'off'} at "
           f"{n_graphs} graphs")
+    single_sync = cfg.pipeline == "single_sync"
 
     orig_dispatch = mining.dispatch_level
     orig_finish = level_step.PendingLevel.finish
@@ -296,17 +429,18 @@ def main_run(label: str, n_graphs: int, seed: int, packed: bool):
         counts["fetch"] += 1
         return orig_finish(self)
 
-    mining.dispatch_level = guarded_dispatch
-    level_step.PendingLevel.finish = counted_finish
+    if single_sync:
+        mining.dispatch_level = guarded_dispatch
+        level_step.PendingLevel.finish = counted_finish
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fl.reset_launches()
+        reset_launch_counts()
         t1 = time.perf_counter()
         res = miner.fit(graphs)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        launches = dict(fl.launches)
+        launches = launch_counts()
     finally:
         mining.dispatch_level = orig_dispatch
         level_step.PendingLevel.finish = orig_finish
@@ -315,14 +449,16 @@ def main_run(label: str, n_graphs: int, seed: int, packed: bool):
     n_levels = len(res.stats)
     audits = [st.audit for st in res.stats]
     check(n_levels >= 1, "the main run mined no level past 1")
-    check(counts["dispatch"] == n_levels == counts["fetch"],
-          f"{counts['dispatch']} dispatches / {counts['fetch']} wire "
-          f"fetches for {n_levels} levels")
+    if single_sync:
+        check(counts["dispatch"] == n_levels == counts["fetch"],
+              f"{counts['dispatch']} dispatches / {counts['fetch']} wire "
+              f"fetches for {n_levels} levels")
     check(all(w == 0 for w in audits),
           f"audit words {audits} (0 = every device check passed)")
-    say(f"phase {label}: fit {secs:.2f}s, frequent per level "
-        f"{res.counts()}, {sum(res.counts())} in all, minsup "
-        f"{res.minsup}, peak device memory {peak} bytes")
+    say(f"phase {label}: {cfg.pipeline} backend={miner.backend} fit "
+        f"{secs:.2f}s, frequent per level {res.counts()}, "
+        f"{sum(res.counts())} in all, minsup {res.minsup}, peak device "
+        f"memory {peak} bytes, kernel launches {launches}")
     for st in res.stats:
         say(f"  level {st.level}: candidates={st.n_candidates} "
             f"frequent={st.n_frequent} {st.seconds:.3f}s "
@@ -330,28 +466,29 @@ def main_run(label: str, n_graphs: int, seed: int, packed: bool):
             f"{st.candgen_seconds:.3f}s) survivor_cap={st.survivor_cap} "
             f"retried={st.retried} escalations={st.escalations} "
             f"overflow={st.overflow}")
-    say(f"phase {label}: {counts['dispatch']} level dispatches ran under "
-        f"sync debug mode 'error' with 1 wire fetch each; audit words "
-        f"{audits}")
+    if single_sync:
+        say(f"phase {label}: {counts['dispatch']} level dispatches ran "
+            f"under sync debug mode 'error' with 1 wire fetch each; audit "
+            f"words {audits}")
 
     t2 = time.perf_counter()
-    want = mine_host(graphs, res.minsup, max_size=cfg.max_size)
-    got = sorted(res.supports.items())
-    check(got == sorted((c, i.support) for c, i in want.frequent.items()),
+    if want is None:
+        frequent = mine_host(graphs, res.minsup,
+                             max_size=cfg.max_size).frequent
+        want = sorted((c, i.support) for c, i in frequent.items())
+        say(f"phase {label}: mine_host took {time.perf_counter() - t2:.1f}s")
+    check(sorted(res.supports.items()) == want,
           "the frequent set differs from mine_host")
-    say(f"phase {label}: frequent set and supports equal mine_host "
-        f"({time.perf_counter() - t2:.1f}s for the oracle)")
-    return res, launches, secs, graphs
+    say(f"phase {label}: frequent set and supports equal mine_host")
+    return res, launches, secs, want
 
 
-def level2_inputs(graphs, packed: bool):
-    """The kernel's arguments at level 2 of the main run's database,
-    from a second fit cut to level 2 after the measured one (its
-    launches are not counted)."""
+def level2_inputs(graphs, wrapped: str, **cfg_kw):
+    """The arguments of the ``kernels.ops`` function ``wrapped`` at level 2
+    of the main run's database, from a second fit cut to level 2 after
+    the measured one (its launches are not counted)."""
     import repro_torch.core.mining as mining
     import repro_torch.kernels.ops as ops
-    from repro_torch.kernels import fused_level as fl
-    wrapped = "fused_level_packed" if packed else "fused_level"
     orig_kernel = getattr(ops, wrapped)
     captured = []
 
@@ -360,20 +497,29 @@ def level2_inputs(graphs, packed: bool):
             captured.append(args)
         return orig_kernel(*args, **kw)
 
-    before = dict(fl.launches)
+    before = launch_counts()
     setattr(ops, wrapped, capture)
     try:
-        mining.Mirage(mining.MirageConfig(minsup=0.15, n_partitions=8,
-                                          max_size=2)).fit(graphs)
+        mining.Mirage(mining.MirageConfig(**{**MAIN_CFG, "max_size": 2},
+                                          **cfg_kw)).fit(graphs)
     finally:
         setattr(ops, wrapped, orig_kernel)
-        fl.launches.update(before)
+        restore_launch_counts(before)
     check(bool(captured), f"{wrapped}: level 2 never reached the kernel")
     return captured[0]
 
 
+def record(name: str, launches: int, err: int, ms: float, plain_ms: float,
+           bound_ms: float, bound_by: str, library_ms=None) -> dict:
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
-    """Hold the kernel against its plain version on the main run's
+    """Hold a fused kernel against its plain version on the main run's
     level-2 inputs, time both, and compute the bound."""
     import torch
     from repro_torch.kernels import fused_level as fl
@@ -382,7 +528,7 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
         kernel, plain = fl.fused_level_packed, fl.fused_level_packed_ref
     else:
         kernel, plain = fl.fused_level, fl.fused_level_ref
-    before = dict(fl.launches)
+    before = launch_counts()
     got = kernel(*kargs)
     torch.cuda.synchronize()
     want = plain(*kargs)
@@ -393,7 +539,7 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
     emb_max = int(got[1].max())
     ms = time_ms(lambda: kernel(*kargs), runs=10)
     plain_ms = time_ms(lambda: plain(*kargs), runs=3, warmup=1)
-    fl.launches.update(before)      # comparison launches do not count
+    restore_launch_counts(before)      # comparison launches do not count
     bound_ms, bound_by, work = level_bound(kargs, packed, got)
     pol, src = kargs[-5], kargs[-3]
     PP, P, G, M, K = pol.shape
@@ -407,10 +553,63 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
         f"{bound_ms:.4f} ms by {bound_by} ({work['bytes']} bytes, "
         f"{work['ops']} pair compares); largest emb {emb_max}, int32 "
         f"headroom bound PP*G*M*F={PP * G * M * F}; launches per level 1")
-    return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return record(name, launches, err, ms, plain_ms, bound_ms, bound_by)
+
+
+def two_launch_records(args, launches: dict) -> list[dict]:
+    """Hold the join and the reduction kernels against their plain
+    versions on the main run's level-2 inputs (the reduction on the
+    join's outputs), time them, the plain versions and, for the
+    reduction, the one PyTorch call that computes it."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_join import embedding_join
+    from repro_torch.kernels.support_count import support_count
+    meta, pol, pmask, src, dst, emask = args
+    PP, P, G, M, K = pol.shape
+    F = src.shape[-1]
+    before = launch_counts()
+    joined = embedding_join(*args)
+    torch.cuda.synchronize()
+    err_j = max_abs_err(joined, ref.embedding_join_ref(*args))
+    check(err_j == 0, f"embedding_join disagrees with its plain version on "
+                      f"the main run's level-2 inputs (max abs err {err_j})")
+    reduced = support_count(*joined)
+    torch.cuda.synchronize()
+    err_r = max_abs_err(reduced, ref.support_count_ref(*joined))
+    check(err_r == 0, f"support_count disagrees with its plain version on "
+                      f"the main run's level-2 inputs (max abs err {err_r})")
+    check(PP * G * M * F < 2 ** 31,
+          "embedding_join: a count could overflow int32 at these shapes")
+    ms_j = time_ms(lambda: embedding_join(*args), runs=10)
+    plain_j = time_ms(lambda: ref.embedding_join_ref(*args), runs=3,
+                      warmup=1)
+    ms_r = time_ms(lambda: support_count(*joined), runs=10)
+    plain_r = time_ms(lambda: ref.support_count_ref(*joined), runs=3,
+                      warmup=1)
+    matched, count = joined
+    lib_r = time_ms(lambda: (torch.sum(matched, dim=-1, dtype=torch.int32),
+                             torch.sum(count, dim=-1, dtype=torch.int32)),
+                    runs=10)
+    restore_launch_counts(before)      # comparison launches do not count
+    bj_ms, bj_by, wj = join_bound(args, joined)
+    br_ms, br_by, wr = reduce_bound(matched, reduced)
+    say(f"embedding_join: level-2 inputs meta {tuple(meta.shape)} pol "
+        f"{tuple(pol.shape)} src {tuple(src.shape)} -> matched/count "
+        f"{tuple(matched.shape)}; exact vs plain; kernel {ms_j:.3f} ms "
+        f"(median of 10), plain {plain_j:.3f} ms (median of 3), bound "
+        f"{bj_ms:.4f} ms by {bj_by} ({wj['bytes']} bytes, {wj['ops']} pair "
+        f"compares); largest count {int(count.max())}; launches "
+        f"{launches['embedding_join']}")
+    say(f"support_count: exact vs plain; kernel {ms_r:.3f} ms (median of "
+        f"10), plain {plain_r:.3f} ms (median of 3), torch.sum x2 "
+        f"{lib_r:.3f} ms (median of 10), bound {br_ms:.4f} ms by {br_by} "
+        f"({wr['bytes']} bytes, {wr['ops']} adds); launches "
+        f"{launches['support_count']}")
+    return [record("embedding_join", launches["embedding_join"], err_j,
+                   ms_j, plain_j, bj_ms, bj_by),
+            record("support_count", launches["support_count"], err_r, ms_r,
+                   plain_r, br_ms, br_by, lib_r)]
 
 
 def main() -> int:
@@ -430,25 +629,50 @@ def main() -> int:
         card = phase_device()
         phase_parity_small()
         phase_small()
-        _, launches4, _, graphs = main_run("4 packed", 40_000, 0, True)
+        graphs40 = make_db("4 packed", 40_000, 0)
+        _, launches4, _, want40 = main_run("4 packed", graphs40, True)
         check(launches4["fused_level_packed"] > 0,
               "the packed kernel never launched on the main path")
-        args4 = level2_inputs(graphs, True)
+        args4 = level2_inputs(graphs40, "fused_level_packed")
         rec_packed = kernel_record("fused_level_packed", args4, True,
                                    launches4["fused_level_packed"])
-        del args4, graphs
+        del args4
         torch.cuda.empty_cache()
-        _, launches5, _, graphs = main_run("5 dense", 80_000, 1, False)
+        graphs80 = make_db("5 dense", 80_000, 1)
+        _, launches5, _, _ = main_run("5 dense", graphs80, False)
         check(launches5["fused_level"] > 0,
               "the dense kernel never launched on the main path")
-        args5 = level2_inputs(graphs, False)
+        args5 = level2_inputs(graphs80, "fused_level")
         rec_dense = kernel_record("fused_level", args5, False,
                                   launches5["fused_level"])
+        del args5, graphs80
+        torch.cuda.empty_cache()
+
+        res6, launches6, _, _ = main_run("6 two-launch", graphs40, True,
+                                         want=want40, backend="pallas")
+        n6 = len(res6.stats)
+        check(launches6["embedding_join"] == launches6["support_count"]
+              == n6, f"the two-launch kernels launched {launches6} times "
+                     f"on phase 6's {n6} levels (1 each per level)")
+        check(launches6["fused_level_packed"] == launches6["fused_level"]
+              == 0, "a fused kernel ran on the two-launch path")
+        args6 = level2_inputs(graphs40, "embedding_join", backend="pallas")
+        recs_two = two_launch_records(args6, launches6)
+        del args6
+        torch.cuda.empty_cache()
+
+        _, launches7, _, _ = main_run("7 legacy", graphs40, False,
+                                      want=want40, pipeline="legacy",
+                                      backend="pallas")
+        check(launches7["embedding_join"] > 0
+              and launches7["support_count"] > 0,
+              "the two-launch kernels never launched on the legacy path")
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1
     print(card, flush=True)
-    print(json.dumps({"kernels": [rec_packed, rec_dense]}), flush=True)
+    print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

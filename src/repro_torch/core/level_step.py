@@ -3,7 +3,8 @@
 One mining level runs as ONE stretch of device work queued on the
 current stream — the port of ``repro.core.level_step._level_program``:
 
-  1. pass-1 support counting   (the fused kernel, or the plain join)
+  1. pass-1 support counting   (the fused kernel, the two-launch
+                                kernels, or the plain join)
   2. the shuffle               (identity collectives at W=1,
                                 ``mapreduce.reduce_supports``)
   3. survivor compaction       (verdict-masked prefix-sum rank, one
@@ -189,8 +190,11 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
 
     ``args`` is ``(sched_meta, tiles, inv, pol, pmask, src, dst, emask)``
     for the fused backends and ``(meta, meta_host, pol, pmask, src, dst,
-    emask)`` for "ref" (``meta_host`` is the same (Cp, 5) candidate table
-    as host rows, for the plain join's loop).
+    emask)`` for "pallas" and "ref": the two-launch kernels read the
+    (Cp, 5) candidate table ``meta`` on the device, the plain join loops
+    over the same table as host rows ``meta_host``.  Both compute the
+    padded candidate rows in full, as the JAX package's two-launch and
+    ref backends do, so their supports ride in the wire's padded tail.
     The true candidate count ``c_real`` masks the padded rows.
 
     The straggler rebalance needs more than one worker: at W=1 the
@@ -215,7 +219,8 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
     else:
         meta_can, meta_host, pol, pmask, src, dst, emask = args
         local_sup, _, emb_pp = device_local_supports(
-            meta_host, pol, pmask, src, dst, emask, packed=packed)
+            meta_can if backend == "pallas" else meta_host, pol, pmask,
+            src, dst, emask, backend=backend, packed=packed)
     dev = pol.device
 
     gsup, verdict = reduce_supports(local_sup, minsup, reduce, packed=packed)
@@ -419,6 +424,9 @@ def dispatch_level(
         args = (upload(sched.meta, dev), upload(sched.tiles, dev),
                 upload(sched.inv.astype(np.int64), dev))
     else:
+        if (meta_p[:, 0] >= P_axis).any() or (meta_p[:, 4] >= T_axis).any():
+            raise ValueError("candidate rows reference a parent or triple "
+                             "outside the stores")
         args = (upload(meta_p, dev), meta_p)
     wire_d, new_pol, new_pmask = level_program(
         C_real, upload(psup_p, dev), *args, pol, pmask, src, dst, emask,

@@ -6,18 +6,27 @@ the collectives of the shuffle are identities, but the code keeps their
 shape — the ``reduce_scatter`` shuffle still packs its verdicts to bit
 lanes and unpacks them again when ``packed`` is on — so the multi-worker
 slice (ROADMAP queue A item 8) only swaps in ``torch.distributed`` calls.
+
+``map_reduce_supports`` and ``map_materialize`` are the two programs of
+the legacy pipeline (support round, then pass 2, with host round trips
+between them); the single-sync pipeline runs the same phases inside one
+level program (``core/level_step.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..kernels.bitset import pack_bits, unpack_bits
+from ..kernels.ops import (device_local_supports, fused_level_supports,
+                           fused_level_supports_packed, is_fused_backend)
+from .candgen import schedule_candidates
 from .embedding import LevelOL, materialize_ol
 
-__all__ = ["MiningMesh", "map_materialize", "reduce_supports",
-           "worker_imbalance"]
+__all__ = ["MiningMesh", "map_reduce_supports", "map_materialize",
+           "reduce_supports", "worker_imbalance"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +72,68 @@ def reduce_supports(local_sup: torch.Tensor, minsup: int, reduce: str, *,
     else:
         raise ValueError(f"unknown reduce {reduce!r}")
     return gsup, verdict
+
+
+def _support_program(meta, pol, pmask, src, dst, emask, *, minsup: int,
+                     backend: str, reduce: str):
+    """The support round of a non-fused backend: the map phase over the
+    device's partitions, then the shuffle."""
+    local_sup, _local_emb, emb_pp = device_local_supports(
+        meta, pol, pmask, src, dst, emask, backend=backend)
+    gsup, verdict = reduce_supports(local_sup, minsup, reduce)
+    return gsup, verdict, emb_pp
+
+
+def _support_program_fused(sched_meta, tiles, inv, pol, pmask, src, dst,
+                           emask, *, minsup: int, backend: str,
+                           reduce: str):
+    """The support round of a fused backend: ONE kernel launch covers
+    every local partition and candidate tile.  Inputs are in scheduled
+    (parent-grouped) order; the inverse permutation is applied before
+    the shuffle, so the shuffle and the caller see canonical order."""
+    if backend == "fused_packed":
+        sup_pp, emb_pp_s, _vbits = fused_level_supports_packed(
+            sched_meta, tiles, pol, pmask, src, dst, emask)
+    else:
+        sup_pp, emb_pp_s = fused_level_supports(sched_meta, tiles, pol,
+                                                pmask, src, dst, emask)
+    local_sup = sup_pp.sum(0, dtype=torch.int32).index_select(0, inv)
+    emb_pp = emb_pp_s.index_select(1, inv)               # (PP, C) canonical
+    gsup, verdict = reduce_supports(local_sup, minsup, reduce)
+    return gsup, verdict, emb_pp
+
+
+def map_reduce_supports(mmesh: MiningMesh, meta, pol, pmask, src, dst,
+                        emask, *, minsup: int, backend: str,
+                        reduce: str = "psum"):
+    """One full map+shuffle+reduce support round of the legacy pipeline.
+
+    Returns ``(global_support (C,), frequent_verdict (C,), per-partition
+    embed counts (NP, C))`` as host numpy, in canonical candidate order
+    for every backend.  The reduce_scatter variant needs the candidate
+    axis divisible by the worker count; when it is not, the metadata is
+    padded with the rows ``mining.py`` pads with and every output is
+    sliced back to C.  The fused backends build the parent-grouped tile
+    schedule here, on the host, from the host rows ``meta``."""
+    meta = np.asarray(meta, np.int32).reshape(-1, 5)
+    C = meta.shape[0]
+    W = mmesh.n_workers
+    if reduce == "reduce_scatter" and C % W:
+        pad = W - C % W
+        meta = np.concatenate(
+            [meta, np.tile([[0, 0, 0, 1, 0]], (pad, 1))]).astype(np.int32)
+    kw = dict(minsup=minsup, backend=backend, reduce=reduce)
+    if is_fused_backend(backend):
+        sched = schedule_candidates(meta)
+        gsup, verdict, emb_pp = _support_program_fused(
+            *(torch.from_numpy(a).to(pol.device) for a in
+              (sched.meta, sched.tiles, sched.inv.astype(np.int64))),
+            pol, pmask, src, dst, emask, **kw)
+    else:
+        gsup, verdict, emb_pp = _support_program(meta, pol, pmask, src,
+                                                 dst, emask, **kw)
+    return (gsup.cpu().numpy()[:C], verdict.cpu().numpy()[:C],
+            emb_pp.cpu().numpy()[:, :C])
 
 
 def map_materialize(keep_meta, pol, pmask, src, dst, emask, *,

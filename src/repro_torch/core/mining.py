@@ -1,5 +1,5 @@
 """MIRAGE iterative mining driver (paper §IV-B/C, Figs. 9-10), single-sync
-pipeline at one worker.
+and legacy pipelines at one worker.
 
 Phases:
   1. data partition  — filter infrequent edges, split into NP partitions
@@ -15,9 +15,13 @@ Phases:
                        until no frequent patterns.
 
 This is the port of ``repro.core.mining`` for ``pipeline="single_sync"``
-at W=1.  ``MirageConfig`` keeps every field of the JAX package; the
-"legacy" and "device_loop" pipelines and device candgen are later
-slices (ROADMAP queue A items 9 and 11) and raise
+and ``pipeline="legacy"`` at W=1.  The legacy pipeline runs the paper's
+two programs: a support round (``mapreduce.map_reduce_supports``) and a
+materialize round with host round trips between them, dense, psum
+by default, no shape buckets and no device audit word — the JAX
+package's differential oracle, kept as it is.  ``MirageConfig`` keeps
+every field of the JAX package; the "device_loop" pipeline and device
+candgen are a later slice (ROADMAP queue A item 11) and raise
 ``NotImplementedError``.  The watchdog, the fault hooks and the
 supervisor (queue A item 10) are not part of this slice.
 
@@ -49,7 +53,7 @@ from .dfscode import Code, array_to_code, code_to_array
 from .embedding import build_edge_ol, candidate_meta, level1_ol
 from .graphdb import Graph
 from .level_step import dispatch_level
-from .mapreduce import MiningMesh, map_materialize
+from .mapreduce import MiningMesh, map_materialize, map_reduce_supports
 from .partition import make_partitions
 
 __all__ = ["MirageConfig", "LevelStats", "DistMiningResult", "Mirage",
@@ -285,10 +289,6 @@ class Mirage:
     def __init__(self, config: MirageConfig,
                  mesh: Optional[MiningMesh] = None,
                  device: Optional[torch.device | str] = None):
-        if config.pipeline == "legacy":
-            raise NotImplementedError(
-                "pipeline='legacy' is not ported yet (ROADMAP queue A "
-                "item 9)")
         if config.pipeline == "device_loop" or config.candgen == "device":
             raise NotImplementedError(
                 "pipeline='device_loop' and candgen='device' are not "
@@ -468,27 +468,34 @@ class Mirage:
 
             # parent supports for the device audit word (§14), one int32
             # per parent pattern (-1 = unknown)
+            # (the legacy pipeline computes no audit word)
             psup = None
-            if cfg.audit:
+            if cfg.audit and cfg.pipeline != "legacy":
                 psup = np.array(
                     [supports.get(p, -1) for p in levels[-1]], np.int32)
 
-            # child patterns (size k+1) have at most k+2 vertices; the
-            # bucketed width reuses the parent store's while it fits
-            child_width = (bk.vertex_slots(k + 2, int(pol.shape[-1]))
-                           if bk is not None else None)
-            if (tile_pin is None and bk is not None
-                    and is_fused_backend(self.backend)):
-                # level 2 is the widest, most parent-diverse grouping the
-                # run will see; later levels reuse its tile width
-                tile_pin = schedule_candidates(meta).tile_c
-            out = self._level_single_sync(
-                meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
-                minsup, M, history, child_width, level=k + 1,
-                packed=packed, tile_c=tile_pin, cands=cands,
-                alphabet=alphabet, cand_rate=cand_rate,
-                spec_window=max(prev_dev, cfg.overlap_spec_window),
-                psup=psup, n_graphs=n_graphs)
+            if cfg.pipeline == "legacy":
+                out = self._level_legacy(
+                    meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
+                    minsup, M, n_parts)
+            else:
+                # child patterns (size k+1) have at most k+2 vertices;
+                # the bucketed width reuses the parent store's while it
+                # fits
+                child_width = (bk.vertex_slots(k + 2, int(pol.shape[-1]))
+                               if bk is not None else None)
+                if (tile_pin is None and bk is not None
+                        and is_fused_backend(self.backend)):
+                    # level 2 is the widest, most parent-diverse grouping
+                    # the run will see; later levels reuse its tile width
+                    tile_pin = schedule_candidates(meta).tile_c
+                out = self._level_single_sync(
+                    meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
+                    minsup, M, history, child_width, level=k + 1,
+                    packed=packed, tile_c=tile_pin, cands=cands,
+                    alphabet=alphabet, cand_rate=cand_rate,
+                    spec_window=max(prev_dev, cfg.overlap_spec_window),
+                    psup=psup, n_graphs=n_graphs)
             if self.auditor is not None:
                 self.auditor.check_wire(k + 1, out.audit)
                 if len(out.keep):
@@ -566,19 +573,24 @@ class Mirage:
     # ------------------------------------------------------------------
     def _packed_support(self, n_graphs: int) -> bool:
         """The packed-support tri-state: explicit config wins; auto means
-        on.  Either way packing additionally requires every global
+        on for the single-sync pipeline (the legacy pipeline stays
+        dense).  Either way packing additionally requires every global
         support to fit uint16 (the wire ships 2 supports per 32-bit
         word) — supports are bounded by the database's graph count."""
         cfg = self.cfg
+        if cfg.pipeline != "single_sync":
+            return False
         on = (cfg.packed_support if cfg.packed_support is not None
               else True)
         return bool(on) and n_graphs < (1 << 16)
 
     # ------------------------------------------------------------------
     def _buckets(self) -> Optional[BucketSpec]:
-        """The run's shape-bucket family, or None when bucketing is off."""
+        """The run's shape-bucket family, or None when bucketing is off.
+        The legacy pipeline never buckets: it is the differential oracle
+        and stays as the JAX package runs it."""
         cfg = self.cfg
-        if not cfg.bucket_shapes:
+        if not cfg.bucket_shapes or cfg.pipeline != "single_sync":
             return None
         return BucketSpec(cfg.bucket_c_floor, cfg.bucket_s_floor,
                           cfg.bucket_k_floor)
@@ -728,6 +740,39 @@ class Mirage:
             map_seconds=map_secs, escalations=escalations,
             retried=retried, survivor_cap=S, spec_cands=spec_cands,
             candgen_seconds=cand_secs, audit=int(w.audit))
+
+    # ------------------------------------------------------------------
+    def _level_legacy(self, meta_p, meta, C, pol, pmask, src, dst, emask,
+                      minsup, M, n_parts) -> _LevelOutcome:
+        """The legacy pipeline: separate support and materialize programs
+        with host round trips between them (the keep list, the escalation
+        loop).  Kept as the differential oracle.  The straggler rebalance
+        permutes the partitions across workers and only runs when there
+        is more than one, so never at W=1; the imbalance is reported."""
+        cfg = self.cfg
+        t_map = time.perf_counter()
+        gsup, verdict, emb_pp = map_reduce_supports(
+            self.mesh, meta_p, pol, pmask, src, dst, emask, minsup=minsup,
+            backend=self.backend, reduce=cfg.reduce)
+        map_secs = time.perf_counter() - t_map
+
+        keep = np.flatnonzero(verdict[:C] != 0)
+        if len(keep) == 0:
+            return _LevelOutcome(
+                gsup=gsup[:C], keep=keep, pol=pol, pmask=pmask, overflow=0,
+                max_embeddings=M, imbalance=1.0, map_seconds=map_secs,
+                escalations=0)
+        new_pol, new_pmask, overflow, M, escalations = (
+            self._materialize_exact(meta[keep], pol, pmask, src, dst,
+                                    emask, M))
+        cost = emb_pp.reshape(n_parts, -1).sum(-1).astype(np.float64)
+        per_worker = cost.reshape(self.mesh.n_workers, -1).sum(-1)
+        mean = per_worker.mean()
+        imbal = float(per_worker.max() / mean) if mean > 0 else 1.0
+        return _LevelOutcome(
+            gsup=gsup[:C], keep=keep, pol=new_pol, pmask=new_pmask,
+            overflow=overflow, max_embeddings=M, imbalance=imbal,
+            map_seconds=map_secs, escalations=escalations)
 
     # ------------------------------------------------------------------
     def _materialize_exact(self, keep_meta, pol, pmask, src, dst, emask, M,

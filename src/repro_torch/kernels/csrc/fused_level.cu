@@ -7,7 +7,7 @@
 //                                 fused_level_packed_pallas / _fused_packed_kernel
 //   fused_level_kernel         <- src/repro/kernels/fused_level.py
 //                                 fused_level_pallas / _fused_kernel
-//   join_row                   <- src/repro/kernels/fused_level.py _joined_blocks
+//   join_row (join.cuh)        <- src/repro/kernels/fused_level.py _joined_blocks
 //
 // Inputs (row-major, int64 offsets everywhere: a child OL store passes
 // 2^31 elements at the main run's shapes):
@@ -49,6 +49,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "join.cuh"
+
 namespace {
 
 struct Level {
@@ -61,44 +63,6 @@ struct Level {
   const uint8_t* emask;
   int PP, P, G, M, K, T, F, NT, TC;
 };
-
-__device__ __forceinline__ int32_t slot_value(const int32_t* emb, int slot,
-                                              int K) {
-  // the JAX join takes pol[stub] as a one-hot sum: 0 when out of range
-  return (slot >= 0 && slot < K) ? emb[slot] : 0;
-}
-
-// Number of joined (m, f) pairs of one schedule row in one graph.
-// pol_g/pm_g: the graph's parent OL rows (M x K) and mask; s_* : the
-// graph's staged edge-OL row, element f at s_*[f * stride].
-__device__ int join_row(const int32_t* pol_g, const uint8_t* pm_g,
-                        const int32_t* s_src, const int32_t* s_dst,
-                        const uint8_t* s_em, int stride, int M, int K,
-                        int F, int stub, int to, int fwd) {
-  int count = 0;
-  for (int m = 0; m < M; ++m) {
-    if (!pm_g[m]) continue;
-    const int32_t* emb = pol_g + (int64_t)m * K;
-    const int32_t sv = slot_value(emb, stub, K);
-    const int32_t tv = slot_value(emb, to, K);
-    for (int f = 0; f < F; ++f) {
-      const int i = f * stride;
-      if (!s_em[i] || s_src[i] != sv) continue;
-      const int32_t d = s_dst[i];
-      bool ok;
-      if (fwd == 1) {          // new endpoint must not be a parent vertex
-        ok = true;
-        for (int k = 0; k < K; ++k) {
-          if (emb[k] == d) { ok = false; break; }
-        }
-      } else {                 // other endpoint must be embedding[to]
-        ok = (d == tv);
-      }
-      count += ok;
-    }
-  }
-  return count;
-}
 
 __device__ __forceinline__ int tile_valid(const int32_t* rows, int TC) {
   int v = 0;

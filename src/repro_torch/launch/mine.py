@@ -1,9 +1,11 @@
-"""Mining launcher of the PyTorch port (single-sync pipeline, one
-device).
+"""Mining launcher of the PyTorch port (single-sync or legacy pipeline,
+one device).
 
     python -m repro_torch.launch.mine --dataset pubchem-like \
         --n-graphs 40000 --avg-edges 28 --minsup 0.15 --partitions 8 \
         --max-size 4
+    python -m repro_torch.launch.mine --dataset paper-toy --minsup 2 \
+        --partitions 2 --pipeline legacy --backend pallas --device cpu
 
 Runs on the CUDA device by default; ``--device cpu`` runs the plain
 PyTorch versions of the kernels instead.  A malformed input database
@@ -33,15 +35,21 @@ def main() -> None:
     ap.add_argument("--max-embeddings", type=int, default=32)
     ap.add_argument("--reduce", default=None,
                     choices=["psum", "reduce_scatter"],
-                    help="shuffle collective (default: reduce_scatter)")
+                    help="shuffle collective (default: reduce_scatter for "
+                         "single_sync, psum for legacy)")
+    ap.add_argument("--pipeline", default="single_sync",
+                    choices=["single_sync", "legacy"],
+                    help="single_sync: one device program and one host "
+                         "transfer per level; legacy: the two-program "
+                         "pipeline (the differential oracle)")
     ap.add_argument("--dense-wire", action="store_true",
                     help="disable the sharded wire layout")
     ap.add_argument("--no-overlap", action="store_true",
                     help="disable overlapped host candidate generation")
     ap.add_argument("--backend", default=None,
-                    choices=["ref", "fused", "fused_packed"],
+                    choices=["ref", "pallas", "fused", "fused_packed"],
                     help="kernels backend (default: fused on CUDA, ref on "
-                         "the CPU)")
+                         "the CPU; pallas = the two-launch kernels)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--no-bucket", action="store_true",
                     help="disable shape bucketing")
@@ -81,7 +89,7 @@ def main() -> None:
     cfg = MirageConfig(
         minsup=minsup, n_partitions=args.partitions, scheme=scheme,
         max_size=args.max_size, max_embeddings=args.max_embeddings,
-        reduce=args.reduce, backend=args.backend,
+        reduce=args.reduce, backend=args.backend, pipeline=args.pipeline,
         sharded_wire=False if args.dense_wire else None,
         overlap_candgen=not args.no_overlap,
         checkpoint_dir=args.ckpt_dir,
@@ -99,8 +107,8 @@ def main() -> None:
 
     print(f"[mine] |G|={len(graphs)} minsup={res.minsup} "
           f"partitions={args.partitions} scheme={args.scheme} "
-          f"reduce={cfg.reduce} device={miner.device} "
-          f"backend={miner.backend}")
+          f"pipeline={cfg.pipeline} reduce={cfg.reduce} "
+          f"device={miner.device} backend={miner.backend}")
     print(f"[mine] frequent patterns: {sum(res.counts())} "
           f"(per level: {res.counts()})")
     print(f"[mine] wall: {dt:.2f}s  overflow: {res.total_overflow}")

@@ -167,15 +167,14 @@ def test_entry_point_runs_on_the_card_unless_asked_for_cpu():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(pipeline="legacy"), "item 9"),
     (dict(pipeline="device_loop", max_size=3), "item 11"),
     (dict(candgen="device"), "item 11"),
 ])
 def test_later_slices_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tmining.Mirage(tmining.MirageConfig(minsup=2, **kw), device="cpu")
-    with pytest.raises(ValueError, match="pallas"):
-        tmining.Mirage(tmining.MirageConfig(minsup=2, backend="pallas"),
+    with pytest.raises(ValueError, match="'interpret' is not available"):
+        tmining.Mirage(tmining.MirageConfig(minsup=2, backend="interpret"),
                        device="cpu")
 
 

@@ -13,7 +13,9 @@ is present, or when the port is not next to it.  Phases:
                (every csrc/*.cu, one nvcc each, in parallel, into
                build/repro_torch_kernels/, timed);
   2. parity  — the four kernels against their plain PyTorch versions on
-               misaligned small shapes, exact;
+               misaligned small shapes (long mask spans, masks with holes,
+               stub/to outside [0, K), unsorted tiles, offset data
+               pointers, more rows than the reduction's grid), exact;
   3. small   — ``Mirage.fit`` on the card against the port's own host
                oracle ``mine_host`` on two small databases, exact, with
                the fused backend (packed and dense), the two-launch
@@ -41,9 +43,13 @@ the level's only device→host transfer, and require every level's audit
 word to be 0.  After phases 4, 5 and 6 a second fit of the same
 database, cut to level 2 and not counted, hands its level-2 kernel
 inputs to the kernels and their plain versions, which must agree and
-are both timed (CUDA events), with the one PyTorch call that computes
-the same function where there is one.  The line before the last is the
-kernels' JSON record; the last line is the run's JSON verdict.
+are both timed (CUDA events; a kernel over batches of 10 back-to-back
+launches, so that the wrapper's host work hides behind the device's),
+with the one PyTorch call that computes the same function where there
+is one (for the reduction, ``torch.sum`` x2 in turns with the kernel).
+The dense kernel's work counts at those inputs are printed too.  The
+line before the last is the kernels' JSON record; the last line is the
+run's JSON verdict.
 """
 from __future__ import annotations
 
@@ -92,21 +98,50 @@ def check(cond: bool, msg: str) -> None:
 # helpers
 # ---------------------------------------------------------------------------
 
-def random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, PP=1):
-    """Random-but-consistent join inputs (ids in [0, 32), PAD -1)."""
+def random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, PP=1,
+                 masks="random", slots=False):
+    """Random-but-consistent join inputs (ids in [0, 32), PAD -1).
+    ``masks``: "random" (dense, with holes), "holes" (sparse) or "prefix"
+    (each row set from slot 0, as the stores are, to a length uniform in
+    [0, width]); ``slots``: stub/to outside [0, K) on some rows."""
     import numpy as np
+
+    def mask(shape):
+        if masks == "prefix":
+            n = rng.integers(0, shape[-1] + 1, shape[:-1])
+            return np.arange(shape[-1]) < n[..., None]
+        return rng.random(shape) < (0.1 if masks == "holes" else 0.7)
+
     pol = rng.integers(0, 32, (PP, P, G, M, K)).astype(np.int32)
-    pmask = rng.random((PP, P, G, M)) < 0.7
+    pmask = mask((PP, P, G, M))
     pol = np.where(rng.random((PP, P, G, M, K)) < 0.15, -1, pol)
     src = rng.integers(0, 32, (PP, T, G, F)).astype(np.int32)
     dst = rng.integers(0, 32, (PP, T, G, F)).astype(np.int32)
-    emask = rng.random((PP, T, G, F)) < 0.7
+    emask = mask((PP, T, G, F))
     src = np.where(emask, src, -1)
     dst = np.where(emask, dst, -1)
     meta = np.stack([rng.integers(0, P, C), rng.integers(0, K, C),
                      rng.integers(0, K, C), rng.integers(0, 2, C),
                      rng.integers(0, T, C)], axis=1).astype(np.int32)
+    if slots:
+        meta[::2, 1] = K + 1
+        meta[1::3, 2] = -1
+        meta[2::3, 2] = K
     return meta, pol, pmask, src, dst, emask
+
+
+def unsort(sched, rng):
+    """The same schedule with its tiles (and their rows) in a random
+    order, so that runs of one parent are broken up."""
+    import numpy as np
+    from repro_torch.core.candgen import CandidateSchedule
+    tc = sched.tile_c
+    perm = rng.permutation(sched.n_tiles)
+    rows = (perm[:, None] * tc + np.arange(tc)).reshape(-1)
+    where = np.empty_like(rows)
+    where[rows] = np.arange(rows.size)
+    return CandidateSchedule(sched.meta[rows], sched.tiles[perm],
+                             where[sched.inv].astype(np.int32), tc)
 
 
 def max_abs_err(got, want) -> int:
@@ -120,9 +155,12 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def time_ms(fn, runs: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``runs`` calls, each timed with its own
-    pair of CUDA events, after ``warmup`` calls."""
+def time_samples(fn, runs: int, warmup: int = 2,
+                 batch: int = 1) -> list[float]:
+    """Milliseconds per call of ``runs`` batches of ``batch`` calls, each
+    batch timed with its own pair of CUDA events, after ``warmup`` calls.
+    A batch keeps the stream busy, so the host's cost of a call is hidden
+    behind the device's work wherever it is the smaller of the two."""
     import torch
     for _ in range(warmup):
         fn()
@@ -131,11 +169,28 @@ def time_ms(fn, runs: int, warmup: int = 2) -> float:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        for _ in range(batch):
+            fn()
         e1.record()
         torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
+        times.append(e0.elapsed_time(e1) / batch)
+    return times
+
+
+def time_ms(fn, runs: int, warmup: int = 2, batch: int = 1) -> float:
+    """Median milliseconds per call (see ``time_samples``)."""
+    return statistics.median(time_samples(fn, runs, warmup, batch))
+
+
+def time_in_turns(a, b, runs: int, batch: int) -> tuple[float, float]:
+    """Medians of ``a`` and ``b`` timed in turns (a, b, b, a), ``runs``
+    batches of ``batch`` calls each turn, so that both see the same card
+    state."""
+    ta = time_samples(a, runs, batch=batch)
+    tb = time_samples(b, runs, batch=batch)
+    tb += time_samples(b, runs, batch=batch)
+    ta += time_samples(a, runs, batch=batch)
+    return statistics.median(ta), statistics.median(tb)
 
 
 def bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -189,6 +244,38 @@ def level_bound(args, packed: bool, outputs) -> tuple[float, str, dict]:
             p, t = int(tiles_h[ct, 0]), int(tiles_h[ct, 1])
             ops += int(valid_rows[ct]) * int((nm[:, p] * nf[:, t]).sum())
     return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
+
+
+def dense_work(args) -> dict:
+    """What the dense kernel's inputs ask of it: valid schedule rows,
+    (row, partition, graph) triples whose parent and edge mask rows both
+    have a non-zero span (last set index + 1), the slot pairs inside
+    those spans, and the set (m, f) pairs (the bound's compares)."""
+    import torch
+    sched_meta, tiles, pol, pmask, src, dst, emask = args
+    NT = tiles.shape[0]
+    tc = sched_meta.shape[0] // NT
+    valid = (sched_meta[:, 5] != 0).cpu()
+    tile_of = torch.arange(sched_meta.shape[0]) // tc
+    rows = tiles.cpu()[tile_of[valid]].long()           # (rows, 2)
+
+    def spans(mask):
+        w = mask.shape[-1]
+        pos = torch.arange(1, w + 1, device=mask.device, dtype=torch.int32)
+        return (mask.to(torch.int32) * pos).amax(-1).to(torch.int64)
+
+    ps, ts = spans(pmask), spans(emask)               # (PP,P,G), (PP,T,G)
+    both = torch.einsum("apg,atg->pt", (ps > 0).double(),
+                        (ts > 0).double()).cpu()
+    slots = torch.einsum("apg,atg->pt", ps.double(), ts.double()).cpu()
+    nm = pmask.to(torch.int64).sum(-1).double()
+    nf = emask.to(torch.int64).sum(-1).double()
+    pairs = torch.einsum("apg,atg->pt", nm, nf).cpu()
+    sel = (rows[:, 0], rows[:, 1])
+    return {"valid_rows": int(valid.sum()),
+            "row_graphs_in_span": int(both[sel].sum()),
+            "span_slot_pairs": int(slots[sel].sum()),
+            "pair_compares": int(pairs[sel].sum())}
 
 
 def join_bound(args, outputs) -> tuple[float, str, dict]:
@@ -292,6 +379,16 @@ def phase_parity_small():
         (dict(C=12, G=100, PP=3, M=16, F=20), 4, 64),
         (dict(C=12, P=3, G=16, M=6, K=3, T=3, F=6), 4, None),
         (dict(C=5, G=33, M=3, K=2, F=200), 8, None),
+        # long spans, holes, out-of-range slots, many tiles, unsorted tiles
+        (dict(C=9, G=37, M=300, F=6, masks="prefix"), 8, None),
+        (dict(C=8, G=70, M=40, F=60, masks="prefix"), 4, None),
+        (dict(C=9, G=37, M=48, F=20, masks="holes"), 2, 32),
+        (dict(C=9, G=37, slots=True), 4, None),
+        (dict(C=80, P=4, G=33, T=3), 1, 96),
+        (dict(C=80, P=4, G=33, T=3), 1, 96),          # unsorted below
+        (dict(C=40, P=3, G=150, M=64, F=10, PP=3, masks="prefix"), 2, None),
+        (dict(C=20, P=3, G=200, M=512, K=8, T=4, F=40, masks="prefix"), 1,
+         32),
     ]
     worst = 0
     for i, (shape, tc, rows) in enumerate(cases):
@@ -303,6 +400,8 @@ def phase_parity_small():
         sched = schedule_candidates(meta, tc)
         if rows:
             sched = pad_schedule(sched, rows_to=rows, inv_to=len(meta) + 3)
+        if i == 12:
+            sched = unsort(sched, rng)
         cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
                (sched.meta, sched.tiles, pol, pmask, src, dst, emask)]
         gpu = [x.cuda() for x in cpu]
@@ -325,6 +424,10 @@ def phase_parity_small():
         (dict(C=6, P=3, G=70, M=4, K=3, T=3, F=5, PP=3), None),
         (dict(C=7, G=20, M=3, K=2, F=200), None),     # narrow block (F)
         (dict(C=70, G=300, PP=2), None),              # G past one block
+        (dict(C=6, G=43, M=40, F=12, masks="prefix"), None),   # G % 4 == 3
+        (dict(C=5, G=21, M=300, K=3, F=6, masks="prefix"), None),
+        (dict(C=7, G=35, M=48, F=20, masks="holes"), None),
+        (dict(C=8, G=27, PP=2, slots=True), None),
     ]
     worst = 0
     for i, (shape, force) in enumerate(two):
@@ -352,6 +455,29 @@ def phase_parity_small():
         worst = max(worst, err)
     say(f"phase 2 parity: {len(two)} misaligned cases x 2 two-launch "
         f"kernels equal their plain versions exactly (max abs err {worst})")
+
+    # the reduction on rows that start off 16-byte alignment (G % 4, data
+    # pointers offset by 4-12 bytes) and on more rows than its grid
+    reduce_cases = [(1, 5, 43, 0), (2, 7, 1001, 1), (1, 3, 2, 3),
+                    (4, 5000, 3, 1), (2, 9, 5000, 2)]
+    worst = 0
+    for i, (PP, C, G, off) in enumerate(reduce_cases):
+        rng = np.random.default_rng(300 + i)
+        n = PP * C * G
+        flat = torch.from_numpy(rng.integers(
+            -2 ** 31, 2 ** 31, 2 * (n + off), dtype=np.int64).astype(np.int32))
+        m_buf, c_buf = flat.cuda().split(n + off)
+        matched, count = (b[off:].view(PP, C, G) for b in (m_buf, c_buf))
+        got = support_count(matched, count)
+        torch.cuda.synchronize()
+        err = max_abs_err([x.cpu() for x in got],
+                          ref.support_count_ref(matched.cpu(), count.cpu()))
+        check(err == 0, f"support_count disagrees with its plain version on "
+                        f"misaligned case {i} (max abs err {err})")
+        worst = max(worst, err)
+    say(f"phase 2 parity: {len(reduce_cases)} misaligned/strided cases of "
+        f"the reduction equal its plain version exactly (max abs err "
+        f"{worst})")
 
 
 def phase_small():
@@ -537,7 +663,7 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
     check(err == 0, f"{name} disagrees with its plain version on the main "
                     f"run's level-2 inputs (max abs err {err})")
     emb_max = int(got[1].max())
-    ms = time_ms(lambda: kernel(*kargs), runs=10)
+    ms = time_ms(lambda: kernel(*kargs), runs=5, batch=10)
     plain_ms = time_ms(lambda: plain(*kargs), runs=3, warmup=1)
     restore_launch_counts(before)      # comparison launches do not count
     bound_ms, bound_by, work = level_bound(kargs, packed, got)
@@ -548,11 +674,14 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
           f"{name}: emb could overflow int32 at these shapes")
     say(f"{name}: level-2 inputs sched {tuple(kargs[0].shape)} tiles "
         f"{tuple(kargs[1].shape)} pol {tuple(pol.shape)} src "
-        f"{tuple(src.shape)}; exact vs plain; kernel {ms:.3f} ms "
-        f"(median of 10), plain {plain_ms:.3f} ms (median of 3), bound "
+        f"{tuple(src.shape)}; exact vs plain; kernel {ms:.4f} ms "
+        f"(median of 5 batches of 10), plain {plain_ms:.3f} ms (median of 3), bound "
         f"{bound_ms:.4f} ms by {bound_by} ({work['bytes']} bytes, "
         f"{work['ops']} pair compares); largest emb {emb_max}, int32 "
         f"headroom bound PP*G*M*F={PP * G * M * F}; launches per level 1")
+    if not packed:
+        say(f"{name}: work at these inputs {dense_work(kargs)}, bytes per "
+            f"the bound {work['bytes']}")
     return record(name, launches, err, ms, plain_ms, bound_ms, bound_by)
 
 
@@ -581,31 +710,32 @@ def two_launch_records(args, launches: dict) -> list[dict]:
                       f"the main run's level-2 inputs (max abs err {err_r})")
     check(PP * G * M * F < 2 ** 31,
           "embedding_join: a count could overflow int32 at these shapes")
-    ms_j = time_ms(lambda: embedding_join(*args), runs=10)
+    ms_j = time_ms(lambda: embedding_join(*args), runs=5, batch=10)
     plain_j = time_ms(lambda: ref.embedding_join_ref(*args), runs=3,
                       warmup=1)
-    ms_r = time_ms(lambda: support_count(*joined), runs=10)
+    matched, count = joined
+    ms_r, lib_r = time_in_turns(
+        lambda: support_count(*joined),
+        lambda: (torch.sum(matched, dim=-1, dtype=torch.int32),
+                 torch.sum(count, dim=-1, dtype=torch.int32)),
+        runs=10, batch=10)
     plain_r = time_ms(lambda: ref.support_count_ref(*joined), runs=3,
                       warmup=1)
-    matched, count = joined
-    lib_r = time_ms(lambda: (torch.sum(matched, dim=-1, dtype=torch.int32),
-                             torch.sum(count, dim=-1, dtype=torch.int32)),
-                    runs=10)
     restore_launch_counts(before)      # comparison launches do not count
     bj_ms, bj_by, wj = join_bound(args, joined)
     br_ms, br_by, wr = reduce_bound(matched, reduced)
     say(f"embedding_join: level-2 inputs meta {tuple(meta.shape)} pol "
         f"{tuple(pol.shape)} src {tuple(src.shape)} -> matched/count "
-        f"{tuple(matched.shape)}; exact vs plain; kernel {ms_j:.3f} ms "
-        f"(median of 10), plain {plain_j:.3f} ms (median of 3), bound "
+        f"{tuple(matched.shape)}; exact vs plain; kernel {ms_j:.4f} ms "
+        f"(median of 5 batches of 10), plain {plain_j:.3f} ms (median of 3), bound "
         f"{bj_ms:.4f} ms by {bj_by} ({wj['bytes']} bytes, {wj['ops']} pair "
         f"compares); largest count {int(count.max())}; launches "
         f"{launches['embedding_join']}")
-    say(f"support_count: exact vs plain; kernel {ms_r:.3f} ms (median of "
-        f"10), plain {plain_r:.3f} ms (median of 3), torch.sum x2 "
-        f"{lib_r:.3f} ms (median of 10), bound {br_ms:.4f} ms by {br_by} "
-        f"({wr['bytes']} bytes, {wr['ops']} adds); launches "
-        f"{launches['support_count']}")
+    say(f"support_count: exact vs plain; kernel {ms_r:.4f} ms and torch.sum "
+        f"x2 {lib_r:.4f} ms (medians of 20 batches of 10, timed in turns "
+        f"kernel, sum, sum, kernel), plain {plain_r:.3f} ms (median of 3), bound "
+        f"{br_ms:.4f} ms by {br_by} ({wr['bytes']} bytes, {wr['ops']} "
+        f"adds); launches {launches['support_count']}")
     return [record("embedding_join", launches["embedding_join"], err_j,
                    ms_j, plain_j, bj_ms, bj_by),
             record("support_count", launches["support_count"], err_r, ms_r,

@@ -20,21 +20,22 @@ from pathlib import Path
 import torch
 
 __all__ = ["build_kernels", "launch", "on_cpu", "block_threads",
-           "store_dims", "check_tensors"]
+           "store_dims", "check_tensors", "SMEM_MAX"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                   "-Xptxas", "-v"]
-_SMEM_LIMIT = 160 * 1024        # dynamic shared memory a block may take
+_SMEM_LIMIT = 160 * 1024        # staged edge rows a join block may take
+SMEM_MAX = 227 * 1024           # dynamic shared memory of one block (H100)
 
 # C entry points: (pointer arguments, int arguments), then the stream
 _ENTRIES = {
     "fused_level_packed_launch": (11, 11),
-    "fused_level_launch": (9, 10),
+    "fused_level_launch": (9, 11),
     "embedding_join_launch": (8, 9),
-    "support_count_launch": (4, 3),
+    "support_count_launch": (4, 5),
 }
 _lib: ctypes.CDLL | None = None
 
@@ -160,7 +161,7 @@ def block_threads(F: int) -> int:
     t = 128
     while t > 32 and F * t * 9 > _SMEM_LIMIT:
         t //= 2
-    if F * t * 9 > 227 * 1024:
+    if F * t * 9 > SMEM_MAX:
         raise ValueError(f"F={F} occurrences per graph exceed the shared "
                          f"memory of one block")
     return t

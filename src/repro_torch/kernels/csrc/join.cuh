@@ -1,8 +1,8 @@
 // The join of one MIRAGE candidate in one graph, shared by every kernel
 // that joins a parent occurrence list with an edge occurrence list:
 // fused_level.cu (fused_level_packed_kernel, fused_level_kernel) and
-// two_launch.cu (embedding_join_kernel).  One device function, so the
-// three joins cannot drift apart.
+// two_launch.cu (embedding_join_kernel).  The (m, f) test is one device
+// function, pair_joins, so the three joins cannot drift apart.
 //
 // Replaces the join of the Pallas TPU kernels of the JAX package:
 //   src/repro/kernels/fused_level.py   _joined_blocks
@@ -23,7 +23,25 @@ __device__ __forceinline__ int32_t slot_value(const int32_t* emb, int slot,
   return (slot >= 0 && slot < K) ? emb[slot] : 0;
 }
 
-// Number of joined (m, f) pairs of one candidate row in one graph.
+// The pair predicate: does parent embedding `emb` (K vertex slots, with
+// sv = its stub value and tv = its `to` value) join the set edge
+// occurrence (s, *d)?  `d` is read only once the source matched.
+__device__ __forceinline__ bool pair_joins(const int32_t* emb, int K,
+                                           int32_t sv, int32_t tv, int fwd,
+                                           int32_t s, const int32_t* d) {
+  if (s != sv) return false;
+  const int32_t v = *d;
+  if (fwd == 1) {              // new endpoint must not be a parent vertex
+    for (int k = 0; k < K; ++k) {
+      if (emb[k] == v) return false;
+    }
+    return true;
+  }
+  return v == tv;              // other endpoint must be embedding[to]
+}
+
+// Number of joined (m, f) pairs of one candidate row in one graph, over
+// the first M parent embeddings and the first F edge occurrences.
 // pol_g/pm_g: the graph's parent OL rows (M x K) and mask; s_* : the
 // graph's edge-OL row, element f at s_*[f * stride] (a staged shared
 // memory column, or the row in device memory with stride 1).
@@ -39,18 +57,8 @@ __device__ int join_row(const int32_t* pol_g, const uint8_t* pm_g,
     const int32_t tv = slot_value(emb, to, K);
     for (int f = 0; f < F; ++f) {
       const int i = f * stride;
-      if (!s_em[i] || s_src[i] != sv) continue;
-      const int32_t d = s_dst[i];
-      bool ok;
-      if (fwd == 1) {          // new endpoint must not be a parent vertex
-        ok = true;
-        for (int k = 0; k < K; ++k) {
-          if (emb[k] == d) { ok = false; break; }
-        }
-      } else {                 // other endpoint must be embedding[to]
-        ok = (d == tv);
-      }
-      count += ok;
+      if (!s_em[i]) continue;
+      count += pair_joins(emb, K, sv, tv, fwd, s_src[i], s_dst + i);
     }
   }
   return count;

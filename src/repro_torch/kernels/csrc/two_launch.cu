@@ -31,23 +31,32 @@
 // each candidate re-reads its parent and edge rows, where candidates of
 // one parent share them, and each thread reads its own graph's rows, so
 // a warp's loads are 32 scattered rows.  The reduction reads the two
-// intermediates once and is bound by bytes too; its loads are coalesced.
+// intermediates once and is bound by bytes too.
 // The design:
-//   * embedding_join_kernel: one thread per graph, one CTA per (graph
-//     chunk, candidate, partition).  The CTA reads its candidate's meta
-//     row itself (the TPU kernel's scalar prefetch); the partition axis
-//     is the grid's z axis (the JAX vmap).  Candidates beyond the grid's
-//     y limit are taken by a grid-stride loop.  The thread stages its
-//     edge-OL row column-wise in shared memory ([f][thread]) so the M*F
-//     loop of join_row reads it without bank conflicts.  Graphs past G
-//     have no thread: the outputs have exactly G columns and the stores
-//     are never padded.  A meta row outside the stores writes zeros (a
-//     memory guard: the callers check their rows on the host).
-//   * support_count_kernel: one CTA per (partition, candidate) row, a
-//     strided sum over G, then a warp-shuffle reduction and one across
-//     the warps.  The adds are on uint32_t, so a sum wraps mod 2^32
-//     exactly as the JAX int32 sums do (signed overflow is undefined in
-//     C++).
+//   * embedding_join_kernel (B3; not yet redesigned): one thread per
+//     graph, one CTA per (graph chunk, candidate, partition).  The CTA
+//     reads its candidate's meta row itself (the TPU kernel's scalar
+//     prefetch); the partition axis is the grid's z axis (the JAX vmap).
+//     Candidates beyond the grid's y limit are taken by a grid-stride
+//     loop.  The thread stages its edge-OL row column-wise in shared
+//     memory ([f][thread]) so the M*F loop of join_row reads it without
+//     bank conflicts.  Graphs past G have no thread: the outputs have
+//     exactly G columns and the stores are never padded.  A meta row
+//     outside the stores writes zeros (a memory guard: the callers check
+//     their rows on the host).
+//   * support_count_kernel (B4): one 256-thread CTA per row with scalar
+//     4-byte loads and two block barriers per row keeps too few bytes in
+//     flight and loses to torch.sum.  So one warp owns a row,
+//     with no barrier, and a grid of a few CTAs per SM (set by the
+//     wrapper from the card's SM count) strides over the rows with int64
+//     offsets.  Each lane keeps four 16-byte streaming loads (__ldcs) of
+//     each array in flight; a row that does not start 16-byte aligned
+//     (G % 4 != 0, or an offset data pointer) takes its unaligned head
+//     and tail as scalars, each array on its own, so nothing is copied.
+//     __reduce_add_sync sums the lanes and lane 0 stores: every output
+//     element has one writer.  The adds are on uint32_t, so a sum wraps
+//     mod 2^32 exactly as the JAX int32 sums do (signed overflow is
+//     undefined in C++).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -98,47 +107,69 @@ __global__ void embedding_join_kernel(JoinArgs J, int32_t* matched,
   }
 }
 
-constexpr int kReduceThreads = 256;
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
+// Split a row at p of G int32 into a scalar head [0, head), 16-byte
+// vectors [head, head + 4 * nvec) and a scalar tail [head + 4 * nvec, G).
+__device__ __forceinline__ void split_row(const int32_t* p, int G, int& head,
+                                          int& nvec) {
+  head = (int)(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) >> 2);
+  head = head < G ? head : G;
+  nvec = (G - head) >> 2;
 }
 
-__global__ void support_count_kernel(const int32_t* matched,
-                                     const int32_t* count, int64_t rows,
-                                     int G, int32_t* sup, int32_t* emb) {
-  __shared__ uint32_t s_sup[kReduceThreads / 32];
-  __shared__ uint32_t s_emb[kReduceThreads / 32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int64_t r = blockIdx.x; r < rows; r += gridDim.x) {
+__device__ __forceinline__ uint32_t sum4(int4 v) {
+  return (uint32_t)v.x + (uint32_t)v.y + (uint32_t)v.z + (uint32_t)v.w;
+}
+
+// The lane's share of the scalar head and tail of a split row.
+__device__ __forceinline__ uint32_t edge_sum(const int32_t* p, int G,
+                                             int head, int nvec, int lane) {
+  uint32_t s = 0u;
+  for (int g = lane; g < head; g += 32) s += (uint32_t)p[g];
+  for (int g = head + 4 * nvec + lane; g < G; g += 32) s += (uint32_t)p[g];
+  return s;
+}
+
+// One warp per (partition, candidate) row, grid-striding over the rows.
+__global__ void support_count_kernel(const int32_t* __restrict__ matched,
+                                     const int32_t* __restrict__ count,
+                                     int64_t rows, int G, int32_t* sup,
+                                     int32_t* emb) {
+  const int lane = threadIdx.x & 31;
+  const int64_t wpb = blockDim.x >> 5;
+  const int64_t stride = (int64_t)gridDim.x * wpb;
+  for (int64_t r = blockIdx.x * wpb + (threadIdx.x >> 5); r < rows;
+       r += stride) {
     const int32_t* m = matched + r * G;
     const int32_t* c = count + r * G;
-    uint32_t a = 0u, b = 0u;
-    for (int g = t; g < G; g += kReduceThreads) {
-      a += static_cast<uint32_t>(m[g]);
-      b += static_cast<uint32_t>(c[g]);
+    int hm, nm, hc, nc;
+    split_row(m, G, hm, nm);
+    split_row(c, G, hc, nc);
+    uint32_t a = edge_sum(m, G, hm, nm, lane);
+    uint32_t b = edge_sum(c, G, hc, nc, lane);
+    const int4* vm = reinterpret_cast<const int4*>(m + hm);
+    const int4* vc = reinterpret_cast<const int4*>(c + hc);
+    const int n = nm < nc ? nm : nc;
+    int v = lane;
+    for (; v + 96 < n; v += 128) {    // 4 loads in flight per array
+      const int4 m0 = __ldcs(vm + v), m1 = __ldcs(vm + v + 32);
+      const int4 m2 = __ldcs(vm + v + 64), m3 = __ldcs(vm + v + 96);
+      const int4 c0 = __ldcs(vc + v), c1 = __ldcs(vc + v + 32);
+      const int4 c2 = __ldcs(vc + v + 64), c3 = __ldcs(vc + v + 96);
+      a += sum4(m0) + sum4(m1) + sum4(m2) + sum4(m3);
+      b += sum4(c0) + sum4(c1) + sum4(c2) + sum4(c3);
     }
-    a = warp_sum(a);
-    b = warp_sum(b);
+    for (; v < n; v += 32) {
+      a += sum4(__ldcs(vm + v));
+      b += sum4(__ldcs(vc + v));
+    }
+    for (int w = n + lane; w < nm; w += 32) a += sum4(__ldcs(vm + w));
+    for (int w = n + lane; w < nc; w += 32) b += sum4(__ldcs(vc + w));
+    a = __reduce_add_sync(0xffffffffu, a);
+    b = __reduce_add_sync(0xffffffffu, b);
     if (lane == 0) {
-      s_sup[warp] = a;
-      s_emb[warp] = b;
+      sup[r] = static_cast<int32_t>(a);
+      emb[r] = static_cast<int32_t>(b);
     }
-    __syncthreads();
-    if (warp == 0) {
-      a = lane < kReduceThreads / 32 ? s_sup[lane] : 0u;
-      b = lane < kReduceThreads / 32 ? s_emb[lane] : 0u;
-      a = warp_sum(a);
-      b = warp_sum(b);
-      if (lane == 0) {
-        sup[r] = static_cast<int32_t>(a);
-        emb[r] = static_cast<int32_t>(b);
-      }
-    }
-    __syncthreads();               // s_* are reused by the next row
   }
 }
 
@@ -171,13 +202,12 @@ extern "C" int embedding_join_launch(
 
 extern "C" int support_count_launch(const void* matched, const void* count,
                                     void* sup, void* emb, int PP, int C,
-                                    int G, void* stream) {
-  const int64_t rows = (int64_t)PP * C;
-  const unsigned blocks = rows < (1 << 20) ? (unsigned)rows : (1u << 20);
-  support_count_kernel<<<blocks, kReduceThreads, 0,
+                                    int G, int blocks, int threads,
+                                    void* stream) {
+  support_count_kernel<<<blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(matched),
-      static_cast<const int32_t*>(count), rows, G,
+      static_cast<const int32_t*>(count), (int64_t)PP * C, G,
       static_cast<int32_t*>(sup), static_cast<int32_t*>(emb));
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,8 @@ backend "pallas" — the CUDA kernel's wrapper.
 
 int32, wrapping mod 2^32 as the JAX sums do.  The kernel is
 ``support_count_kernel`` in ``csrc/two_launch.cu``.  The JAX wrapper pads
-C and G to the kernel's tiles; this kernel takes any C and G, so nothing
-is padded.
+C and G to the kernel's tiles; this kernel takes any C and G, and data
+pointers at any 4-byte offset, so nothing is padded or copied.
 
 The wrapper runs the plain version (``ref.support_count_ref``) only for
 tensors on the CPU.  On a CUDA tensor it launches the kernel on the
@@ -19,12 +19,20 @@ current stream or raises; each launch adds one to :data:`launches`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .build import check_tensors, launch, on_cpu
 from .ref import support_count_ref
 
-__all__ = ["support_count", "launches", "reset_launches"]
+__all__ = ["support_count", "reduce_geometry", "launches",
+           "reset_launches"]
+
+# one warp per row, REDUCE_WARPS warps a CTA, REDUCE_CTAS_PER_SM CTAs an
+# SM (a full H100 SM: 64 warps)
+REDUCE_WARPS = 8
+REDUCE_CTAS_PER_SM = 8
 
 # kernel launches since the last reset_launches()
 launches = {"support_count": 0}
@@ -32,6 +40,18 @@ launches = {"support_count": 0}
 
 def reset_launches() -> None:
     launches["support_count"] = 0
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def reduce_geometry(rows: int, n_sm: int) -> tuple[int, int]:
+    """``(blocks, threads)`` of the reduction: one warp per row, at most
+    a full card's worth of CTAs, which then stride over the rows."""
+    blocks = min(-(-rows // REDUCE_WARPS), n_sm * REDUCE_CTAS_PER_SM)
+    return max(blocks, 1), REDUCE_WARPS * 32
 
 
 def support_count(matched: torch.Tensor, count: torch.Tensor):
@@ -48,6 +68,7 @@ def support_count(matched: torch.Tensor, count: torch.Tensor):
     emb = torch.empty_like(sup)
     if PP * C == 0 or G == 0:
         return sup.zero_(), emb.zero_()
+    blocks, threads = reduce_geometry(PP * C, _sm_count(matched.device))
     launch("support_count", launches, (matched, count, sup, emb),
-           (PP, C, G))
+           (PP, C, G, blocks, threads))
     return sup, emb

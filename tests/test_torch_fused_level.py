@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from repro_torch.core import embedding as temb
-from repro_torch.core.candgen import pad_schedule, schedule_candidates
+from repro_torch.core.candgen import (CandidateSchedule, pad_schedule,
+                                      schedule_candidates)
 from repro_torch.kernels import fused_level as tfl
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.bitset import n_words
@@ -28,15 +29,25 @@ def ref():
     return types.SimpleNamespace(emb=embedding, ops=ops)
 
 
-def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8):
+def _masks(rng, shape, kind):
+    """Occurrence masks: "random" (dense, with holes), "holes" (sparse,
+    so spans end anywhere) or "prefix" (the stores' layout: each row set
+    from slot 0, to a length uniform in [0, width])."""
+    if kind == "prefix":
+        n = rng.integers(0, shape[-1] + 1, shape[:-1])
+        return np.arange(shape[-1]) < n[..., None]
+    return rng.random(shape) < (0.1 if kind == "holes" else 0.7)
+
+
+def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, masks="random"):
     """Random-but-consistent join inputs (ids in [0, 32), PAD -1),
     deliberately misaligned (C % tile_c != 0, G % 32 != 0)."""
     pol = rng.integers(0, 32, (P, G, M, K)).astype(np.int32)
-    pmask = rng.random((P, G, M)) < 0.7
+    pmask = _masks(rng, (P, G, M), masks)
     pol = np.where(rng.random((P, G, M, K)) < 0.15, -1, pol)
     src = rng.integers(0, 32, (T, G, F)).astype(np.int32)
     dst = rng.integers(0, 32, (T, G, F)).astype(np.int32)
-    emask = rng.random((T, G, F)) < 0.7
+    emask = _masks(rng, (T, G, F), masks)
     src = np.where(emask, src, -1)
     dst = np.where(emask, dst, -1)
     meta = np.stack([rng.integers(0, P, C), rng.integers(0, K, C),
@@ -55,7 +66,9 @@ def _stack_pp(rng, PP, **shape):
             np.stack([emask] * PP))
 
 
-# (shape, PP, tile_c, bucket rows, tile_g)
+# (shape, PP, tile_c, bucket rows, tile_g); besides _random_level's
+# arguments a shape may name "slots" (stub/to outside [0, K)) and
+# "unsorted" (tiles not in parent order)
 KERNEL_CASES = [
     pytest.param(dict(C=9, G=37), 1, 8, None, 128, id="G37"),
     pytest.param(dict(C=7, G=20), 1, 4, None, 128, id="C7-tc4"),
@@ -67,18 +80,53 @@ KERNEL_CASES = [
                  id="dup-parents"),
     pytest.param(dict(C=5, G=70, M=4, K=3, T=3, F=5), 1, 8, 16, 64,
                  id="G70-tail-words"),
+    pytest.param(dict(C=9, G=37, M=300, F=6, masks="prefix"), 1, 8, None,
+                 128, id="M300-prefix"),
+    pytest.param(dict(C=8, G=40, M=40, F=60, masks="prefix"), 1, 4, None,
+                 128, id="F60-prefix"),
+    pytest.param(dict(C=9, G=37, M=48, F=20, masks="holes"), 1, 2, 32, 128,
+                 id="M48-holes"),
+    pytest.param(dict(C=9, G=37, slots=True), 1, 4, None, 128,
+                 id="slots-out-of-range"),
+    pytest.param(dict(C=80, P=4, G=33, T=3), 1, 1, 96, 128,
+                 id="tc1-80-tiles"),
+    pytest.param(dict(C=80, P=4, G=33, T=3, unsorted=True), 1, 1, 96, 128,
+                 id="tc1-unsorted"),
+    pytest.param(dict(C=10, P=3, G=50, M=64, F=10, masks="prefix"), 3, 2,
+                 None, 128, id="PP3-prefix"),
 ]
 
 
+def _unsort(sched, rng):
+    """The same schedule with its tiles (and their rows) in a random
+    order, so that runs of one parent are broken up."""
+    tc = sched.tile_c
+    perm = rng.permutation(sched.n_tiles)
+    rows = (perm[:, None] * tc + np.arange(tc)).reshape(-1)
+    where = np.empty_like(rows)
+    where[rows] = np.arange(rows.size)
+    return CandidateSchedule(sched.meta[rows], sched.tiles[perm],
+                             where[sched.inv].astype(np.int32), tc)
+
+
 def _kernel_inputs(shape, PP, tc, rows, seed):
+    shape = dict(shape)
+    slots, unsorted = shape.pop("slots", False), shape.pop("unsorted", False)
     rng = np.random.default_rng(seed)
     meta, pol, pmask, src, dst, emask = _stack_pp(rng, PP, **shape)
     if shape.get("C") == 12:                      # heavy parent skew
         meta[:, 0] = np.asarray([1] * 9 + [2] * 3)
         meta[:, 4] = np.asarray([0] * 6 + [2] * 6)
+    if slots:                                     # stub/to outside [0, K)
+        K = pol.shape[-1]
+        meta[::2, 1] = K + 1
+        meta[1::3, 2] = -1
+        meta[2::3, 2] = K
     sched = schedule_candidates(meta, tc)
     if rows is not None:
         sched = pad_schedule(sched, rows_to=rows, inv_to=len(meta) + 2)
+    if unsorted:
+        sched = _unsort(sched, rng)
     return meta, sched, (pol, pmask, src, dst, emask)
 
 
@@ -220,3 +268,68 @@ def test_cuda_kernels_equal_plain_versions(shape, PP, tc, rows, tile_g):
         assert sum(tfl.launches.values()) == sum(before.values()) + 1
         for a, b in zip(got, f(*cpu)):
             assert torch.equal(a.cpu(), b)
+
+
+def _is_prefix(mask: np.ndarray) -> bool:
+    """Every row of the last axis set from slot 0 with no hole."""
+    n = mask.sum(-1, keepdims=True)
+    return bool((mask == (np.arange(mask.shape[-1]) < n)).all())
+
+
+@pytest.mark.parametrize("db", ["random_db", "pubchem_like_db"])
+def test_stores_keep_set_entries_as_a_prefix(db):
+    """The edge-OL, the level-1 store and a materialized child store fill
+    every (triple|parent, graph) row from slot 0.  The dense kernel's
+    spans are exact on any mask, but its speed rests on this layout."""
+    from repro_torch.core import graphdb
+    from repro_torch.core.candgen import EdgeAlphabet, generate_candidates
+    if db == "random_db":
+        graphs = graphdb.random_db(12, n_vertices=6, extra_edge_prob=0.4,
+                                   n_vlabels=2, n_elabels=2, seed=5)
+    else:
+        graphs = graphdb.pubchem_like_db(16, seed=1, avg_edges=12)
+    triples = sorted({(int(g.vlabels[u]), int(el), int(g.vlabels[v]))
+                      for g in graphs
+                      for (a, b), el in zip(g.edges, g.elabels)
+                      for u, v in ((a, b), (b, a))})
+    eol = temb.build_edge_ol(graphs, triples)
+    assert _is_prefix(eol.mask)
+    alphabet = EdgeAlphabet(triples)
+    codes = [((0, 1, a, e, b),) for a, e, b in alphabet.canonical()]
+    lvl = temb.level1_ol(codes, eol, max_embeddings=8)
+    assert _is_prefix(lvl.mask.numpy())
+    cands = generate_candidates(codes, alphabet)
+    meta = temb.candidate_meta(cands, eol)
+    src, dst, em = (torch.from_numpy(x) for x in (eol.src, eol.dst,
+                                                   eol.mask))
+    joined = 0
+    for row in meta[:12]:
+        _, mask, _ = temb.materialize_one(lvl, src, dst, em,
+                                          torch.from_numpy(row),
+                                          max_embeddings=16)
+        assert _is_prefix(mask.numpy())
+        joined += int(mask.sum())
+    assert joined > 0, "the check needs child embeddings to look at"
+
+
+def test_dense_geometry_at_the_extreme_shapes():
+    """The dense kernel's shared memory holds the spans of every triple
+    for 32 graphs (and per warp those of one parent); the largest T that
+    fits launches, one more raises, as do more partitions than the grid
+    takes.  M, F and K do not enter it: M = 512 and F = 800 need no
+    shared memory."""
+    from repro_torch.kernels.build import SMEM_MAX, block_threads
+    warps = tfl.DENSE_CHUNK * 9 * tfl.DENSE_WARPS
+    t_max = (SMEM_MAX - warps) // (tfl.DENSE_CHUNK * 4)
+    threads, smem = tfl.dense_geometry(8, t_max)
+    assert threads == tfl.DENSE_WARPS * 32 and smem <= SMEM_MAX
+    assert tfl.dense_geometry(1, 1) == (threads,
+                                        tfl.DENSE_CHUNK * 4 + warps)
+    with pytest.raises(ValueError, match="shared"):
+        tfl.dense_geometry(8, t_max + 1)
+    with pytest.raises(ValueError, match="grid"):
+        tfl.dense_geometry(65536, 45)
+    # the packed kernel's staged edge rows at the largest F
+    assert block_threads(800) == 32
+    with pytest.raises(ValueError, match="shared memory"):
+        block_threads(SMEM_MAX // (32 * 9) + 1)

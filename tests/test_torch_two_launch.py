@@ -41,15 +41,24 @@ def ref():
         graphdb=graphdb)
 
 
-def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, PP=1):
+def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, PP=1,
+                  masks="random"):
     """Random-but-consistent join inputs with a leading partition axis
-    (ids in [0, 32), PAD -1)."""
+    (ids in [0, 32), PAD -1).  ``masks``: "random" (dense, with holes),
+    "holes" (sparse) or "prefix" (each row set from slot 0, as the
+    stores are, to a length uniform in [0, width])."""
+    def mask(shape):
+        if masks == "prefix":
+            n = rng.integers(0, shape[-1] + 1, shape[:-1])
+            return np.arange(shape[-1]) < n[..., None]
+        return rng.random(shape) < (0.1 if masks == "holes" else 0.7)
+
     pol = rng.integers(0, 32, (PP, P, G, M, K)).astype(np.int32)
-    pmask = rng.random((PP, P, G, M)) < 0.7
+    pmask = mask((PP, P, G, M))
     pol = np.where(rng.random((PP, P, G, M, K)) < 0.15, -1, pol)
     src = rng.integers(0, 32, (PP, T, G, F)).astype(np.int32)
     dst = rng.integers(0, 32, (PP, T, G, F)).astype(np.int32)
-    emask = rng.random((PP, T, G, F)) < 0.7
+    emask = mask((PP, T, G, F))
     src = np.where(emask, src, -1)
     dst = np.where(emask, dst, -1)
     meta = np.stack([rng.integers(0, P, C), rng.integers(0, K, C),
@@ -58,9 +67,10 @@ def _random_level(rng, C=7, P=5, G=20, M=8, K=4, T=6, F=8, PP=1):
     return meta, pol, pmask, src, dst, emask
 
 
-# (shape, what the case forces) — misaligned on purpose: G % 32 != 0,
-# G below the JAX graph tile of 128, a single candidate, all-backward
-# and all-forward rows, all-zero masks, several partitions
+# (shape, what the case forces) — misaligned on purpose: G % 32 != 0 and
+# every G % 4, G below the JAX graph tile of 128, a single candidate,
+# all-backward and all-forward rows, all-zero masks, several partitions,
+# long spans of prefix masks, sparse masks, stub/to outside [0, K)
 CASES = [
     pytest.param(dict(C=9, G=37), None, id="G37"),
     pytest.param(dict(C=7, G=20, M=3, K=2, F=200), None, id="G20-F200"),
@@ -71,6 +81,13 @@ CASES = [
     pytest.param(dict(C=6, P=3, G=70, M=4, K=3, T=3, F=5, PP=3), None,
                  id="PP3-G70"),
     pytest.param(dict(C=5, G=130), None, id="G130"),
+    pytest.param(dict(C=6, G=43, M=40, F=12, masks="prefix"), None,
+                 id="G43-M40-prefix"),
+    pytest.param(dict(C=5, G=21, M=300, K=3, F=6, masks="prefix"), None,
+                 id="M300-prefix"),
+    pytest.param(dict(C=7, G=35, M=48, F=20, masks="holes"), None,
+                 id="M48-holes"),
+    pytest.param(dict(C=8, G=27, PP=2), "slots", id="PP2-slots"),
 ]
 
 
@@ -84,6 +101,11 @@ def _case(shape, force, seed):
     elif force == "no-masks":
         pmask[:] = False
         emask[:] = False
+    elif force == "slots":                        # stub/to outside [0, K)
+        K = pol.shape[-1]
+        meta[::2, 1] = K + 1
+        meta[1::3, 2] = -1
+        meta[2::3, 2] = K
     return meta, (pol, pmask, src, dst, emask)
 
 
@@ -168,6 +190,17 @@ def test_wrappers_check_inputs_and_use_plain_versions_on_cpu():
         tsc.support_count(matched, count[:, :, :-1])
     with pytest.raises(TypeError, match="count must be int32"):
         tsc.support_count(matched, count.to(torch.int64))
+
+
+def test_reduce_geometry():
+    """One warp per row while the rows fit the card; past that the grid
+    stays at REDUCE_CTAS_PER_SM CTAs per SM and strides."""
+    warps = tsc.REDUCE_WARPS
+    assert tsc.reduce_geometry(1, 132) == (1, warps * 32)
+    assert tsc.reduce_geometry(4096, 132) == (4096 // warps, warps * 32)
+    cap = 132 * tsc.REDUCE_CTAS_PER_SM
+    assert tsc.reduce_geometry(20_000, 132) == (cap, warps * 32)
+    assert tsc.reduce_geometry(2 ** 40, 132)[0] == cap
 
 
 # (packed, reduce, sharded) of the level-wire cases
@@ -371,6 +404,39 @@ def test_cuda_support_count_wraps_like_int32():
     s_r, e_r = tref.support_count_ref(big, big)
     assert torch.equal(sup.cpu(), s_r) and torch.equal(emb.cpu(), e_r)
     assert int(s_r[0, 0]) == 0 and int(s_r[0, 1]) == -28
+
+
+# (PP, C, G, offset of the data pointer in int32 elements)
+REDUCE_CASES = [
+    pytest.param(1, 5, 43, 0, id="G43"),            # G % 4 == 3
+    pytest.param(2, 7, 1001, 1, id="offset4B"),     # data_ptr % 16 == 4
+    pytest.param(1, 3, 2, 3, id="G2-offset12B"),    # rows shorter than a vector
+    pytest.param(4, 5000, 3, 1, id="rows-past-grid"),
+    pytest.param(2, 9, 5000, 2, id="G5000-offset8B"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("PP,C,G,offset", REDUCE_CASES)
+def test_cuda_support_count_misaligned_and_strided(PP, C, G, offset):
+    """Rows that do not start 16-byte aligned (G % 4 != 0, a contiguous
+    tensor whose data pointer is offset) and more rows than the grid has
+    warps: exact against the plain version, no copy."""
+    _needs_card()
+    rng = np.random.default_rng(G + offset)
+    n = PP * C * G
+    flat = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 2 * (n + offset),
+                                         dtype=np.int64).astype(np.int32))
+    m_buf, c_buf = flat.cuda().split(n + offset)
+    matched = m_buf[offset:].view(PP, C, G)
+    count = c_buf[offset:].view(PP, C, G)
+    assert matched.is_contiguous() and matched.data_ptr() % 16 == 4 * offset
+    before = tsc.launches["support_count"]
+    sup, emb = tsc.support_count(matched, count)
+    torch.cuda.synchronize()
+    assert tsc.launches["support_count"] == before + 1
+    s_r, e_r = tref.support_count_ref(matched.cpu(), count.cpu())
+    assert torch.equal(sup.cpu(), s_r) and torch.equal(emb.cpu(), e_r)
 
 
 @pytest.mark.cuda

@@ -14,8 +14,12 @@ is present, or when the port is not next to it.  Phases:
                build/repro_torch_kernels/, timed);
   2. parity  — the four kernels against their plain PyTorch versions on
                misaligned small shapes (long mask spans, masks with holes,
-               stub/to outside [0, K), unsorted tiles, offset data
-               pointers, more rows than the reduction's grid), exact;
+               stub/to outside [0, K), unsorted tiles, verdict words past
+               G, a candidate table padded with copies of one row, runs
+               of equal rows, offset data pointers, more rows than the
+               reduction's grid), exact, with outputs that start as
+               garbage; the two-launch join's zeros for a run of rows
+               outside the stores;
   3. small   — ``Mirage.fit`` on the card against the port's own host
                oracle ``mine_host`` on two small databases, exact, with
                the fused backend (packed and dense), the two-launch
@@ -47,9 +51,12 @@ are both timed (CUDA events; a kernel over batches of 10 back-to-back
 launches, so that the wrapper's host work hides behind the device's),
 with the one PyTorch call that computes the same function where there
 is one (for the reduction, ``torch.sum`` x2 in turns with the kernel).
-The dense kernel's work counts at those inputs are printed too.  The
-line before the last is the kernels' JSON record; the last line is the
-run's JSON verdict.
+The three join kernels' work counts at those inputs are printed too
+(rows joined, (row, partition, graph) triples inside both mask spans,
+slot pairs inside the spans, set (m, f) pairs); for the two-launch join
+over every meta row and over the heads of its runs of equal rows, the
+rows it joins.  The line before the last is the kernels' JSON record;
+the last line is the run's JSON verdict.
 """
 from __future__ import annotations
 
@@ -142,6 +149,17 @@ def unsort(sched, rng):
     where[rows] = np.arange(rows.size)
     return CandidateSchedule(sched.meta[rows], sched.tiles[perm],
                              where[sched.inv].astype(np.int32), tc)
+
+
+def poison(*shapes) -> None:
+    """Free blocks of these int32 shapes filled with -7, so that outputs
+    a kernel's wrapper allocates with torch.empty right after start as
+    garbage: an element the kernel fails to write then shows."""
+    import torch
+    junk = [torch.full(s, -7, dtype=torch.int32, device="cuda")
+            for s in shapes]
+    torch.cuda.synchronize()
+    del junk
 
 
 def max_abs_err(got, want) -> int:
@@ -246,18 +264,36 @@ def level_bound(args, packed: bool, outputs) -> tuple[float, str, dict]:
     return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
 
 
-def dense_work(args) -> dict:
-    """What the dense kernel's inputs ask of it: valid schedule rows,
-    (row, partition, graph) triples whose parent and edge mask rows both
-    have a non-zero span (last set index + 1), the slot pairs inside
-    those spans, and the set (m, f) pairs (the bound's compares)."""
+def sched_rows(sched_meta, tiles):
+    """(parent, triple) of the valid rows of a fused kernel's schedule:
+    the rows it joins."""
     import torch
-    sched_meta, tiles, pol, pmask, src, dst, emask = args
-    NT = tiles.shape[0]
-    tc = sched_meta.shape[0] // NT
+    tc = sched_meta.shape[0] // tiles.shape[0]
     valid = (sched_meta[:, 5] != 0).cpu()
     tile_of = torch.arange(sched_meta.shape[0]) // tc
-    rows = tiles.cpu()[tile_of[valid]].long()           # (rows, 2)
+    return tiles.cpu()[tile_of[valid]].long()
+
+
+def meta_rows(meta, heads: bool):
+    """(parent, triple) of the two-launch join's meta rows: all of them,
+    or (``heads``) those that differ from the row before them — the rows
+    the kernel joins."""
+    import torch
+    m = meta.cpu().long()
+    if heads:
+        keep = torch.ones(m.shape[0], dtype=torch.bool)
+        keep[1:] = (m[1:] != m[:-1]).any(1)
+        m = m[keep]
+    return m[:, [0, 4]]
+
+
+def join_work(rows, pmask, emask) -> dict:
+    """What a join kernel's rows (``rows`` (n, 2): parent, triple) ask of
+    it at these stores: the rows, the (row, partition, graph) triples
+    whose parent and edge mask rows both have a non-zero span (last set
+    index + 1), the slot pairs inside those spans, and the set (m, f)
+    pairs (the bound's compares)."""
+    import torch
 
     def spans(mask):
         w = mask.shape[-1]
@@ -272,7 +308,7 @@ def dense_work(args) -> dict:
     nf = emask.to(torch.int64).sum(-1).double()
     pairs = torch.einsum("apg,atg->pt", nm, nf).cpu()
     sel = (rows[:, 0], rows[:, 1])
-    return {"valid_rows": int(valid.sum()),
+    return {"rows": int(rows.shape[0]),
             "row_graphs_in_span": int(both[sel].sum()),
             "span_slot_pairs": int(slots[sel].sum()),
             "pair_compares": int(pairs[sel].sum())}
@@ -283,9 +319,9 @@ def join_bound(args, outputs) -> tuple[float, str, dict]:
     rows in full; for each parent a candidate references, its mask rows
     in full plus the K slots of every set embedding; for each such
     triple, its mask rows in full plus src and dst of every set
-    occurrence; each output written once.  Compares: per candidate,
-    every set parent embedding against every set edge occurrence of the
-    same graph."""
+    occurrence; each output written once.  Compares: per distinct
+    candidate row (equal rows have equal outputs), every set parent
+    embedding against every set edge occurrence of the same graph."""
     import torch
     meta, pol, pmask, src, dst, emask = args
     rows = meta.cpu()
@@ -302,7 +338,8 @@ def join_bound(args, outputs) -> tuple[float, str, dict]:
     nbytes += int(nf[:, triples].sum()) * (4 + 4)
     nbytes += sum(o.numel() * o.element_size() for o in outputs)
     pairs = (nm[:, :, None, :] * nf[:, None, :, :]).sum((0, 3))  # (P, T)
-    ops = int(pairs[rows[:, 0].long(), rows[:, 4].long()].sum())
+    distinct = torch.unique(rows.long(), dim=0)
+    ops = int(pairs[distinct[:, 0], distinct[:, 4]].sum())
     return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
 
 
@@ -389,6 +426,8 @@ def phase_parity_small():
         (dict(C=40, P=3, G=150, M=64, F=10, PP=3, masks="prefix"), 2, None),
         (dict(C=20, P=3, G=200, M=512, K=8, T=4, F=40, masks="prefix"), 1,
          32),
+        # G = 130 at the 128-graph tile: 8 verdict words, 3 past G
+        (dict(C=9, G=130, M=6, F=6), 4, 16),
     ]
     worst = 0
     for i, (shape, tc, rows) in enumerate(cases):
@@ -405,7 +444,10 @@ def phase_parity_small():
         cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
                (sched.meta, sched.tiles, pol, pmask, src, dst, emask)]
         gpu = [x.cuda() for x in cpu]
+        G, PP = shape["G"], pol.shape[0]
+        tg = min(128, -(-G // 32) * 32)            # the packed graph tile
         for f in (fused_level_supports_packed, fused_level_supports):
+            poison((PP, len(sched.meta), -(-G // tg) * tg // 32))
             got = f(*gpu)
             torch.cuda.synchronize()
             err = max_abs_err([x.cpu() for x in got], f(*cpu))
@@ -428,6 +470,9 @@ def phase_parity_small():
         (dict(C=5, G=21, M=300, K=3, F=6, masks="prefix"), None),
         (dict(C=7, G=35, M=48, F=20, masks="holes"), None),
         (dict(C=8, G=27, PP=2, slots=True), None),
+        (dict(C=12, G=37), "padded-tail"),            # bucket padding rows
+        (dict(C=14, G=29, PP=2), "runs"),             # runs of equal rows
+        (dict(C=70, G=300, PP=2), "padded-tail"),
     ]
     worst = 0
     for i, (shape, force) in enumerate(two):
@@ -440,9 +485,17 @@ def phase_parity_small():
         elif force == "no-masks":
             pmask[:] = False
             emask[:] = False
+        elif force == "padded-tail":    # copies of [0, 0, 0, 1, 0]
+            meta[-len(meta) // 3:] = [0, 0, 0, 1, 0]
+        elif force == "runs":           # runs, and equal rows apart
+            meta[2:5] = meta[1]
+            meta[8] = meta[1]
+            meta[10:12] = meta[9]
+            meta[13] = meta[9]
         cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
                (meta, pol, pmask, src, dst, emask)]
         gpu = [x.cuda() for x in cpu]
+        poison(*[(pol.shape[0], len(meta), shape["G"])] * 2)
         joined = embedding_join(*gpu)
         reduced = support_count(*joined)
         torch.cuda.synchronize()
@@ -455,6 +508,27 @@ def phase_parity_small():
         worst = max(worst, err)
     say(f"phase 2 parity: {len(two)} misaligned cases x 2 two-launch "
         f"kernels equal their plain versions exactly (max abs err {worst})")
+
+    # a run of meta rows outside the stores (and single ones) gives zeros
+    rng = np.random.default_rng(250)
+    meta, pol, pmask, src, dst, emask = random_level(rng, C=8, G=45, PP=2)
+    P, T = pol.shape[1], src.shape[1]
+    outside = np.array([[P, 0, 1, 1, 0]] * 3 + [[0, 0, 1, 0, T]] * 2
+                       + [[-1, 0, 0, 1, 0]], np.int32)
+    rows = np.concatenate([meta[:4], outside, meta[4:]])
+    cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
+           (rows, pol, pmask, src, dst, emask)]
+    poison(*[(2, len(rows), 45)] * 2)
+    got = [x.cpu() for x in embedding_join(*[x.cuda() for x in cpu])]
+    inside = np.r_[0:4, 10:len(rows)]
+    want = ref.embedding_join_ref(torch.from_numpy(meta), *cpu[1:])
+    err = max_abs_err([x[:, inside] for x in got], want)
+    err = max(err, max_abs_err([x[:, 4:10] for x in got],
+                               [torch.zeros_like(x[:, 4:10]) for x in got]))
+    check(err == 0, f"embedding_join: rows outside the stores do not give "
+                    f"zeros, or their neighbours differ (max abs err {err})")
+    say("phase 2 parity: embedding_join writes zeros for a run of meta rows "
+        "outside the stores and equals its plain version on the rest")
 
     # the reduction on rows that start off 16-byte alignment (G % 4, data
     # pointers offset by 4-12 bytes) and on more rows than its grid
@@ -679,9 +753,9 @@ def kernel_record(name: str, args, packed: bool, launches: int) -> dict:
         f"{bound_ms:.4f} ms by {bound_by} ({work['bytes']} bytes, "
         f"{work['ops']} pair compares); largest emb {emb_max}, int32 "
         f"headroom bound PP*G*M*F={PP * G * M * F}; launches per level 1")
-    if not packed:
-        say(f"{name}: work at these inputs {dense_work(kargs)}, bytes per "
-            f"the bound {work['bytes']}")
+    say(f"{name}: work at these inputs "
+        f"{join_work(sched_rows(kargs[0], kargs[1]), kargs[-4], kargs[-1])}"
+        f", bytes per the bound {work['bytes']}")
     return record(name, launches, err, ms, plain_ms, bound_ms, bound_by)
 
 
@@ -731,6 +805,10 @@ def two_launch_records(args, launches: dict) -> list[dict]:
         f"{bj_ms:.4f} ms by {bj_by} ({wj['bytes']} bytes, {wj['ops']} pair "
         f"compares); largest count {int(count.max())}; launches "
         f"{launches['embedding_join']}")
+    say(f"embedding_join: work at these inputs, every meta row "
+        f"{join_work(meta_rows(meta, False), pmask, emask)}; the heads of "
+        f"runs of equal rows (joined) "
+        f"{join_work(meta_rows(meta, True), pmask, emask)}")
     say(f"support_count: exact vs plain; kernel {ms_r:.4f} ms and torch.sum "
         f"x2 {lib_r:.4f} ms (medians of 20 batches of 10, timed in turns "
         f"kernel, sum, sum, kernel), plain {plain_r:.3f} ms (median of 3), bound "
@@ -755,6 +833,7 @@ def main() -> int:
         say(f"FAIL: the port is not next to this script ({SRC})")
         return 2
     sys.path.insert(0, str(SRC))
+    t_start = time.perf_counter()
     try:
         card = phase_device()
         phase_parity_small()
@@ -800,6 +879,7 @@ def main() -> int:
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1
+    say(f"every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two]}),
           flush=True)

@@ -19,22 +19,22 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["build_kernels", "launch", "on_cpu", "block_threads",
-           "store_dims", "check_tensors", "SMEM_MAX"]
+__all__ = ["build_kernels", "launch", "on_cpu", "join_geometry",
+           "store_dims", "check_tensors", "SMEM_MAX", "JOIN_CHUNK",
+           "JOIN_WARPS"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                   "-Xptxas", "-v"]
-_SMEM_LIMIT = 160 * 1024        # staged edge rows a join block may take
 SMEM_MAX = 227 * 1024           # dynamic shared memory of one block (H100)
 
 # C entry points: (pointer arguments, int arguments), then the stream
 _ENTRIES = {
-    "fused_level_packed_launch": (11, 11),
+    "fused_level_packed_launch": (11, 12),
     "fused_level_launch": (9, 11),
-    "embedding_join_launch": (8, 9),
+    "embedding_join_launch": (8, 10),
     "support_count_launch": (4, 5),
 }
 _lib: ctypes.CDLL | None = None
@@ -154,17 +154,31 @@ def check_tensors(device: torch.device, int32: dict, masks: dict,
             raise ValueError(f"{name} must be contiguous")
 
 
-def block_threads(F: int) -> int:
-    """Block width of the join kernels: 128 graphs per CTA unless the
-    staged edge rows (9 bytes per occurrence per thread) need a narrower
-    block."""
-    t = 128
-    while t > 32 and F * t * 9 > _SMEM_LIMIT:
-        t //= 2
-    if F * t * 9 > SMEM_MAX:
-        raise ValueError(f"F={F} occurrences per graph exceed the shared "
+# the join kernels (B1-B3, the row walk of csrc/join.cuh): one CTA owns
+# JOIN_CHUNK graphs (one per lane of a warp) of one partition, with
+# JOIN_WARPS warps taking rows
+JOIN_CHUNK = 32
+JOIN_WARPS = 8
+# per warp: its parent's spans, its slot-range ends, its per-graph counts
+JOIN_WARP_BYTES = 3 * JOIN_CHUNK * 4
+
+
+def join_geometry(PP: int, T: int) -> tuple[int, int]:
+    """Launch geometry of the join kernels: ``(threads, shared_bytes)`` of
+    each CTA of their (graph chunks, PP) grid.  A CTA holds the uint32
+    mask spans of every triple for its 32 graphs, and each warp 3 x 32
+    words of its own; M, F, K, the row count and G take no shared memory
+    and have no limit here.  Raises ``ValueError`` on a shape that does
+    not fit: more triples than one block's shared memory holds spans for,
+    or more partitions than the grid's y limit."""
+    smem = T * JOIN_CHUNK * 4 + JOIN_WARPS * JOIN_WARP_BYTES
+    if smem > SMEM_MAX:
+        raise ValueError(f"T={T} triples: their mask spans take {smem} "
+                         f"bytes, past the {SMEM_MAX} bytes of shared "
                          f"memory of one block")
-    return t
+    if PP > 65535:
+        raise ValueError(f"{PP} partitions exceed the CUDA grid limit")
+    return JOIN_WARPS * 32, smem
 
 
 def launch(name: str, counts: dict, tensors, dims) -> None:

@@ -11,8 +11,8 @@
 //                            src/repro/kernels/ops.py device_local_supports)
 //   support_count_kernel  <- src/repro/kernels/support_count.py
 //                            support_count_pallas / _reduce_kernel
-// The join itself is join_row of join.cuh, the device function the fused
-// kernels use, so the three joins cannot drift apart.
+// The join is the row walk of join.cuh (walk_rows, pair_joins), the one
+// the fused kernels run, so the three joins cannot drift apart.
 //
 // Inputs (row-major, int64 offsets everywhere):
 //   meta  (C, 5) int32  [parent, stub, to, fwd, triple]
@@ -27,23 +27,28 @@
 // K slots of every set embedding and src/dst of every set occurrence, and
 // it writes 8 bytes per (partition, candidate, graph); its (m, f)
 // compares take far less at the card's 32-bit rate, so its bound is
-// bytes.  It runs above that bound (read from the code; not profiled):
-// each candidate re-reads its parent and edge rows, where candidates of
-// one parent share them, and each thread reads its own graph's rows, so
-// a warp's loads are 32 scattered rows.  The reduction reads the two
-// intermediates once and is bound by bytes too.
+// bytes.  The reduction reads the two intermediates once and is bound by
+// bytes too.
 // The design:
-//   * embedding_join_kernel (B3; not yet redesigned): one thread per
-//     graph, one CTA per (graph chunk, candidate, partition).  The CTA
-//     reads its candidate's meta row itself (the TPU kernel's scalar
-//     prefetch); the partition axis is the grid's z axis (the JAX vmap).
-//     Candidates beyond the grid's y limit are taken by a grid-stride
-//     loop.  The thread stages its edge-OL row column-wise in shared
-//     memory ([f][thread]) so the M*F loop of join_row reads it without
-//     bank conflicts.  Graphs past G have no thread: the outputs have
-//     exactly G columns and the stores are never padded.  A meta row
-//     outside the stores writes zeros (a memory guard: the callers check
-//     their rows on the host).
+//   * embedding_join_kernel (B3): the walk of join.cuh over the meta
+//     rows, one CTA per (32-graph chunk, partition), grid (ceil(G / 32),
+//     PP); rows come from the walk's counter, so C has no grid limit.
+//     The callers pad the candidate table to its bucket with copies of
+//     one row ([0, 0, 0, 1, 0]: at the 40K main run's level 2, 170 of
+//     512 rows, each as costly as the commonest real row), and their
+//     results ride in the wire's padded tail, so they must be computed.
+//     So a row equal in all five ints to the row before it is a
+//     follower: the warp that takes it does nothing, and the warp that
+//     joins the head of a run of equal consecutive rows writes its
+//     per-graph matched/count into every row of the run (lane g stores
+//     graph g0 + g, two coalesced 128-byte stores per row).  Each output
+//     element has one writer and no warp waits for another.  Equal rows
+//     that are not consecutive are each joined (in the main runs only
+//     the padding repeats: the 343 run heads of the 40K run's level 2 are
+//     343 distinct rows).  A row outside the stores (a
+//     memory guard: the callers check their rows on the host) writes
+//     zeros, and so does its run.  Graphs past G have no lane: the
+//     outputs have exactly G columns and the stores are never padded.
 //   * support_count_kernel (B4): one 256-thread CTA per row with scalar
 //     4-byte loads and two block barriers per row keeps too few bytes in
 //     flight and loses to torch.sum.  So one warp owns a row,
@@ -64,47 +69,53 @@
 
 namespace {
 
-struct JoinArgs {
+__device__ __forceinline__ bool same_row(const int32_t* a, const int32_t* b) {
+  return a[0] == b[0] && a[1] == b[1] && a[2] == b[2] && a[3] == b[3] &&
+         a[4] == b[4];
+}
+
+// The meta rows as a row source, with the (PP, C, G) outputs.
+struct JoinRows {
   const int32_t* meta;
-  const int32_t* pol;
-  const uint8_t* pmask;
-  const int32_t* src;
-  const int32_t* dst;
-  const uint8_t* emask;
-  int PP, P, G, M, K, T, F, C;
+  int C, P, T, G;
+  int32_t* matched;
+  int32_t* count;
+
+  __device__ RowKind take(int r, JoinRow& j) const {
+    const int32_t* row = meta + (int64_t)r * 5;
+    if (r > 0 && same_row(row, row - 5)) return kSkip;   // a follower
+    j = JoinRow{row[0], row[4], row[1], row[2], row[3]};
+    const bool inside = j.parent >= 0 && j.parent < P && j.triple >= 0 &&
+                        j.triple < T;
+    return inside ? kJoin : kZero;
+  }
+  // Write the lane's graph's result into every row of the run headed by r.
+  __device__ void emit(int r, uint32_t cnt) const {
+    const int lane = threadIdx.x & 31;
+    const int32_t* head = meta + (int64_t)r * 5;
+    int n = 1;                        // the run's length
+    for (;;) {
+      const int q = r + n + lane;
+      const bool same = q < C && same_row(meta + (int64_t)q * 5, head);
+      const uint32_t differ = __ballot_sync(0xffffffffu, !same);
+      if (differ) {
+        n += __ffs(differ) - 1;
+        break;
+      }
+      n += 32;
+    }
+    const int g = blockIdx.x * kChunk + lane;
+    if (g >= G) return;
+    int64_t o = ((int64_t)blockIdx.y * C + r) * G + g;
+    for (int q = 0; q < n; ++q, o += G) {
+      matched[o] = cnt != 0u;
+      count[o] = (int32_t)cnt;
+    }
+  }
 };
 
-__global__ void embedding_join_kernel(JoinArgs J, int32_t* matched,
-                                      int32_t* count) {
-  extern __shared__ unsigned char smem[];
-  const int B = blockDim.x, t = threadIdx.x;
-  const int pp = blockIdx.z;
-  const int g = blockIdx.x * B + t;
-  if (g >= J.G) return;            // no collective below: safe to leave
-  int32_t* s_src = reinterpret_cast<int32_t*>(smem);
-  int32_t* s_dst = s_src + J.F * B;
-  uint8_t* s_em = reinterpret_cast<uint8_t*>(s_dst + J.F * B);
-
-  for (int c = blockIdx.y; c < J.C; c += gridDim.y) {
-    const int32_t* row = J.meta + (int64_t)c * 5;
-    const int parent = row[0], triple = row[4];
-    int n = 0;
-    if (parent >= 0 && parent < J.P && triple >= 0 && triple < J.T) {
-      const int64_t eb = (((int64_t)pp * J.T + triple) * J.G + g) * J.F;
-      for (int f = 0; f < J.F; ++f) {
-        s_src[f * B + t] = J.src[eb + f];
-        s_dst[f * B + t] = J.dst[eb + f];
-        s_em[f * B + t] = J.emask[eb + f];
-      }
-      const int64_t pg = ((int64_t)pp * J.P + parent) * J.G + g;
-      n = join_row(J.pol + pg * J.M * J.K, J.pmask + pg * J.M, s_src + t,
-                   s_dst + t, s_em + t, B, J.M, J.K, J.F, row[1], row[2],
-                   row[3]);
-    }
-    const int64_t o = ((int64_t)pp * J.C + c) * J.G + g;
-    matched[o] = n > 0;
-    count[o] = n;
-  }
+__global__ void embedding_join_kernel(Stores S, JoinRows rows) {
+  walk_rows(S, rows, rows.C);
 }
 
 // Split a row at p of G int32 into a scalar head [0, head), 16-byte
@@ -180,23 +191,23 @@ __global__ void support_count_kernel(const int32_t* __restrict__ matched,
 extern "C" int embedding_join_launch(
     const void* meta, const void* pol, const void* pmask, const void* src,
     const void* dst, const void* emask, void* matched, void* count, int PP,
-    int P, int G, int M, int K, int T, int F, int C, int threads,
+    int P, int G, int M, int K, int T, int F, int C, int threads, int smem,
     void* stream) {
-  const size_t smem = (size_t)F * threads * 9;
   cudaError_t err = cudaFuncSetAttribute(
       embedding_join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((G + threads - 1) / threads, C < 65535 ? C : 65535, PP);
-  embedding_join_kernel<<<grid, threads, smem,
+  const JoinRows rows{static_cast<const int32_t*>(meta), C, P, T, G,
+                      static_cast<int32_t*>(matched),
+                      static_cast<int32_t*>(count)};
+  embedding_join_kernel<<<dim3((G + kChunk - 1) / kChunk, PP), threads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      JoinArgs{static_cast<const int32_t*>(meta),
-               static_cast<const int32_t*>(pol),
-               static_cast<const uint8_t*>(pmask),
-               static_cast<const int32_t*>(src),
-               static_cast<const int32_t*>(dst),
-               static_cast<const uint8_t*>(emask), PP, P, G, M, K, T, F, C},
-      static_cast<int32_t*>(matched), static_cast<int32_t*>(count));
+      Stores{static_cast<const int32_t*>(pol),
+             static_cast<const uint8_t*>(pmask),
+             static_cast<const int32_t*>(src),
+             static_cast<const int32_t*>(dst),
+             static_cast<const uint8_t*>(emask), PP, P, G, M, K, T, F},
+      rows);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@ two-launch backend "pallas" — the CUDA kernel's wrapper.
 (``src/repro/kernels/embedding_join.py:98``) together with the vmap over
 the device-local partitions that ``repro.kernels.ops`` wraps around it.
 The kernel is ``embedding_join_kernel`` in ``csrc/two_launch.cu``; it
-shares its join device function (``csrc/join.cuh``) with the fused
-kernels.  The source note there says what bounds it on the H100.
+runs the row walk of ``csrc/join.cuh`` that the fused kernels run, and
+joins each run of equal consecutive meta rows once.  The source note
+there says what bounds it on the H100.
 
 Inputs (one device):
   meta       (C, 5) int32     [parent, stub, to, fwd, triple]
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import block_threads, check_tensors, launch, on_cpu, store_dims
+from .build import check_tensors, join_geometry, launch, on_cpu, store_dims
 from .ref import embedding_join_ref
 
 __all__ = ["embedding_join", "launches", "reset_launches"]
@@ -43,8 +44,6 @@ def _check(meta, pol, pmask, src, dst, emask):
     PP, P, G, M, K, T, F = store_dims(pol, pmask, src, dst, emask)
     if meta.dim() != 2 or meta.shape[1] != 5:
         raise ValueError(f"meta {tuple(meta.shape)} must be (C, 5)")
-    if PP > 65535:
-        raise ValueError(f"{PP} partitions exceed the CUDA grid limit")
     check_tensors(pol.device, dict(meta=meta, pol=pol, src=src, dst=dst),
                   dict(pmask=pmask, emask=emask))
     return PP, P, G, M, K, T, F, meta.shape[0]
@@ -57,10 +56,11 @@ def embedding_join(meta, pol, pmask, src, dst, emask):
     PP, P, G, M, K, T, F, C = _check(meta, pol, pmask, src, dst, emask)
     if on_cpu(pol):
         return embedding_join_ref(meta, pol, pmask, src, dst, emask)
+    threads, smem = join_geometry(PP, T)
     matched = torch.empty((PP, C, G), dtype=torch.int32, device=pol.device)
     count = torch.empty_like(matched)
     if C and G:
         launch("embedding_join", launches,
                (meta, pol, pmask, src, dst, emask, matched, count),
-               (PP, P, G, M, K, T, F, C, block_threads(F)))
+               (PP, P, G, M, K, T, F, C, threads, smem))
     return matched, count

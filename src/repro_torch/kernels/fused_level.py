@@ -6,11 +6,10 @@ kernels, their wrappers and their plain PyTorch versions.
 (``src/repro/kernels/fused_level.py:263``, the main path while the
 database has fewer than 2^16 graphs); ``fused_level`` replaces its dense
 twin ``fused_level_pallas`` (``src/repro/kernels/fused_level.py:194``).
-Both kernels live in ``csrc/fused_level.cu`` and share one join device
-function (``csrc/join.cuh``), as the Pallas kernels share
-``_joined_blocks``.  The source
-note there says what bounds them on the H100 and what the design does
-about it.
+Both kernels live in ``csrc/fused_level.cu`` and run the row walk of
+``csrc/join.cuh``, as the Pallas kernels share ``_joined_blocks``; the
+two-launch join runs it too.  The source notes there say what bounds
+them on the H100 and what the design does about it.
 
 Inputs (one device; ``ops.py`` owns the padding contract):
   sched_meta (Cs, 6) int32  [parent, stub, to, fwd, triple, valid]
@@ -33,12 +32,11 @@ from __future__ import annotations
 import torch
 
 from .bitset import WORD, pack_bits, popcount
-from .build import (SMEM_MAX, block_threads, check_tensors, launch, on_cpu,
-                    store_dims)
+from .build import check_tensors, join_geometry, launch, on_cpu, store_dims
 
 __all__ = ["fused_level", "fused_level_packed", "fused_level_ref",
            "fused_level_packed_ref", "launches", "reset_launches",
-           "dense_geometry", "DEFAULT_TILE_C"]
+           "DEFAULT_TILE_C"]
 
 DEFAULT_TILE_C = 8
 
@@ -78,37 +76,6 @@ def _check(sched_meta, tiles, pol, pmask, src, dst, emask, gmask=None):
     return PP, P, G, M, K, T, F, NT, Cs // NT
 
 
-# the dense kernel: one CTA owns DENSE_CHUNK graphs (one per lane of a
-# warp) of one partition, with DENSE_WARPS warps taking schedule rows
-DENSE_CHUNK = 32
-DENSE_WARPS = 8
-
-
-def dense_geometry(PP: int, T: int) -> tuple[int, int]:
-    """Launch geometry of the dense kernel: ``(threads, shared_bytes)``
-    of each CTA of its (ceil(G/32), PP) grid.  A CTA holds the uint32 mask
-    spans of every triple for its 32 graphs, and each warp those of its
-    current parent, 32 int32 slot-range ends and 32 hit bytes; M, F and K
-    take no shared memory.  Raises ``ValueError`` on a shape that does
-    not fit: more triples than one block's shared memory holds spans for,
-    or more partitions than the grid's y limit."""
-    smem = T * DENSE_CHUNK * 4 + DENSE_WARPS * DENSE_CHUNK * 9
-    if smem > SMEM_MAX:
-        raise ValueError(f"T={T} triples: their mask spans take {smem} "
-                         f"bytes, past the {SMEM_MAX} bytes of shared "
-                         f"memory of one block")
-    if PP > 65535:
-        raise ValueError(f"{PP} partitions exceed the CUDA grid limit")
-    return DENSE_WARPS * 32, smem
-
-
-def _launch(name: str, tensors, dims, NT: int, PP: int) -> None:
-    if NT > 65535 or PP > 65535:
-        raise ValueError(f"grid ({NT} tiles, {PP} partitions) exceeds the "
-                         f"CUDA grid limits")
-    launch(name, launches, tensors, dims)
-
-
 def fused_level_packed(sched_meta, tiles, gmask, pol, pmask, src, dst,
                        emask):
     """Packed single-launch level supports: ``(sup, emb, vbits)``."""
@@ -117,14 +84,15 @@ def fused_level_packed(sched_meta, tiles, gmask, pol, pmask, src, dst,
     if on_cpu(pol):
         return fused_level_packed_ref(sched_meta, tiles, gmask, pol, pmask,
                                       src, dst, emask)
+    threads, smem = join_geometry(PP, T)
     Cs, Gw, dev = sched_meta.shape[0], gmask.shape[0], pol.device
     sup = torch.zeros((PP, Cs), dtype=torch.int32, device=dev)
     emb = torch.zeros((PP, Cs), dtype=torch.int32, device=dev)
     vbits = torch.empty((PP, Cs, Gw), dtype=torch.uint32, device=dev)
-    _launch("fused_level_packed",
-            (sched_meta, tiles, gmask, pol, pmask, src, dst, emask, sup, emb,
-             vbits),
-            (PP, P, G, M, K, T, F, NT, TC, Gw, block_threads(F)), NT, PP)
+    launch("fused_level_packed", launches,
+           (sched_meta, tiles, gmask, pol, pmask, src, dst, emask, sup, emb,
+            vbits),
+           (PP, P, G, M, K, T, F, NT, TC, Gw, threads, smem))
     return sup, emb, vbits
 
 
@@ -135,7 +103,7 @@ def fused_level(sched_meta, tiles, pol, pmask, src, dst, emask):
     if on_cpu(pol):
         return fused_level_ref(sched_meta, tiles, pol, pmask, src, dst,
                                emask)
-    threads, smem = dense_geometry(PP, T)
+    threads, smem = join_geometry(PP, T)
     Cs, dev = sched_meta.shape[0], pol.device
     sup = torch.zeros((PP, Cs), dtype=torch.int32, device=dev)
     emb = torch.zeros((PP, Cs), dtype=torch.int32, device=dev)

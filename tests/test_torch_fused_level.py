@@ -94,6 +94,9 @@ KERNEL_CASES = [
                  id="tc1-unsorted"),
     pytest.param(dict(C=10, P=3, G=50, M=64, F=10, masks="prefix"), 3, 2,
                  None, 128, id="PP3-prefix"),
+    # G = 130 at the 128-graph tile: Gw = 8 words, the last 3 past G
+    pytest.param(dict(C=9, G=130, M=6, F=6), 1, 4, 16, 128,
+                 id="G130-tail-words"),
 ]
 
 
@@ -312,24 +315,53 @@ def test_stores_keep_set_entries_as_a_prefix(db):
     assert joined > 0, "the check needs child embeddings to look at"
 
 
-def test_dense_geometry_at_the_extreme_shapes():
-    """The dense kernel's shared memory holds the spans of every triple
-    for 32 graphs (and per warp those of one parent); the largest T that
+def test_dense_geometry_at_the_extreme_shapes(monkeypatch):
+    """The three join kernels (packed, dense and the two-launch join)
+    share one geometry: a CTA's shared memory holds the spans of every
+    triple for 32 graphs, and per warp 3 x 32 words; the largest T that
     fits launches, one more raises, as do more partitions than the grid
-    takes.  M, F and K do not enter it: M = 512 and F = 800 need no
-    shared memory."""
-    from repro_torch.kernels.build import SMEM_MAX, block_threads
-    warps = tfl.DENSE_CHUNK * 9 * tfl.DENSE_WARPS
-    t_max = (SMEM_MAX - warps) // (tfl.DENSE_CHUNK * 4)
-    threads, smem = tfl.dense_geometry(8, t_max)
-    assert threads == tfl.DENSE_WARPS * 32 and smem <= SMEM_MAX
-    assert tfl.dense_geometry(1, 1) == (threads,
-                                        tfl.DENSE_CHUNK * 4 + warps)
+    takes.  M, F, K, G and the row count do not enter it.  Each wrapper,
+    made to take its card path here, launches with that geometry (F =
+    900 too, past what a per-thread staged edge row could take) and
+    raises ``ValueError`` past it, before it allocates anything."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import embedding_join as tej
+    from repro_torch.kernels.bitset import tail_mask
+    warps = build.JOIN_WARPS * build.JOIN_WARP_BYTES
+    t_max = (build.SMEM_MAX - warps) // (build.JOIN_CHUNK * 4)
+    threads, smem = build.join_geometry(8, t_max)
+    assert threads == build.JOIN_WARPS * 32 and smem <= build.SMEM_MAX
+    assert build.join_geometry(1, 1) == (threads,
+                                         build.JOIN_CHUNK * 4 + warps)
     with pytest.raises(ValueError, match="shared"):
-        tfl.dense_geometry(8, t_max + 1)
+        build.join_geometry(8, t_max + 1)
     with pytest.raises(ValueError, match="grid"):
-        tfl.dense_geometry(65536, 45)
-    # the packed kernel's staged edge rows at the largest F
-    assert block_threads(800) == 32
-    with pytest.raises(ValueError, match="shared memory"):
-        block_threads(SMEM_MAX // (32 * 9) + 1)
+        build.join_geometry(65536, 45)
+
+    launched = []
+    for mod in (tfl, tej):
+        monkeypatch.setattr(mod, "on_cpu", lambda x: False)
+        monkeypatch.setattr(mod, "launch", lambda name, counts, tensors,
+                            dims: launched.append((name, dims[-2:])))
+    sched = torch.tensor([[0, 0, 1, 1, 0, 1]], dtype=torch.int32)
+    tiles = torch.zeros((1, 2), dtype=torch.int32)
+    meta = sched[:, :5].contiguous()
+    pol = torch.zeros((1, 2, 1, 4, 3), dtype=torch.int32)
+    pmask = torch.ones((1, 2, 1, 4), dtype=torch.bool)
+    for T, F in ((t_max, 900), (t_max + 1, 2)):
+        src = torch.zeros((1, T, 1, F), dtype=torch.int32)
+        stores = (pol, pmask, src, src.clone(),
+                  torch.ones(src.shape, dtype=torch.bool))
+        calls = (lambda: tfl.fused_level_packed(sched, tiles, tail_mask(1),
+                                                *stores),
+                 lambda: tfl.fused_level(sched, tiles, *stores),
+                 lambda: tej.embedding_join(meta, *stores))
+        for call in calls:
+            if T > t_max:
+                with pytest.raises(ValueError, match="shared memory"):
+                    call()
+            else:
+                call()
+    assert launched == [(name, (threads, smem)) for name in
+                        ("fused_level_packed", "fused_level",
+                         "embedding_join")]

@@ -88,6 +88,10 @@ CASES = [
     pytest.param(dict(C=7, G=35, M=48, F=20, masks="holes"), None,
                  id="M48-holes"),
     pytest.param(dict(C=8, G=27, PP=2), "slots", id="PP2-slots"),
+    # a candidate table padded to its bucket with copies of [0, 0, 0, 1, 0]
+    pytest.param(dict(C=12, G=37), "padded-tail", id="padded-tail"),
+    # runs of equal consecutive rows, and equal rows that are not adjacent
+    pytest.param(dict(C=14, G=29, PP=2), "runs", id="runs"),
 ]
 
 
@@ -106,6 +110,13 @@ def _case(shape, force, seed):
         meta[::2, 1] = K + 1
         meta[1::3, 2] = -1
         meta[2::3, 2] = K
+    elif force == "padded-tail":
+        meta[-5:] = [0, 0, 0, 1, 0]
+    elif force == "runs":
+        meta[2:5] = meta[1]                       # a run of 4
+        meta[8] = meta[1]                         # equal, not adjacent
+        meta[10:12] = meta[9]                     # a run of 3
+        meta[13] = meta[9]
     return meta, (pol, pmask, src, dst, emask)
 
 
@@ -372,6 +383,16 @@ def _needs_card():
         pytest.skip("needs a CUDA device: no CUDA device is present")
 
 
+def _poison_outputs(PP, C, G):
+    """Free two blocks of the join outputs' size filled with -7, so that
+    the kernel's outputs (torch.empty) start as garbage: an element the
+    kernel fails to write then shows."""
+    junk = [torch.full((PP, C, G), -7, dtype=torch.int32, device="cuda")
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    del junk
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,force", CASES)
 def test_cuda_two_launch_kernels_equal_plain_versions(shape, force):
@@ -379,6 +400,7 @@ def test_cuda_two_launch_kernels_equal_plain_versions(shape, force):
     meta, stores = _case(shape, force, seed=11)
     cpu = _tensors(meta, *stores)
     gpu = [x.cuda() for x in cpu]
+    _poison_outputs(gpu[1].shape[0], meta.shape[0], gpu[1].shape[2])
     before = (tej.launches["embedding_join"], tsc.launches["support_count"])
     matched, count = tej.embedding_join(*gpu)
     sup, emb = tsc.support_count(matched, count)
@@ -391,6 +413,29 @@ def test_cuda_two_launch_kernels_equal_plain_versions(shape, force):
     s_r, e_r = tref.support_count_ref(m_r, c_r)
     assert torch.equal(sup.cpu(), s_r)
     assert torch.equal(emb.cpu(), e_r)
+
+
+@pytest.mark.cuda
+def test_cuda_join_writes_zeros_for_a_run_outside_the_stores():
+    """Meta rows outside the stores (parent >= P, triple >= T, parent < 0)
+    give zeros on the card, the followers of their runs too, while the
+    rows around them equal the plain version's."""
+    _needs_card()
+    meta, stores = _case(dict(C=8, G=45, PP=2), None, seed=5)
+    P, T = stores[0].shape[1], stores[2].shape[1]
+    outside = np.array([[P, 0, 1, 1, 0]] * 3 + [[0, 0, 1, 0, T]] * 2
+                       + [[-1, 0, 0, 1, 0]], np.int32)
+    rows = np.concatenate([meta[:4], outside, meta[4:]])
+    cpu = _tensors(rows, *stores)
+    gpu = [x.cuda() for x in cpu]
+    _poison_outputs(2, rows.shape[0], 45)
+    matched, count = tej.embedding_join(*gpu)
+    torch.cuda.synchronize()
+    assert not matched[:, 4:10].any() and not count[:, 4:10].any()
+    inside = np.r_[0:4, 10:rows.shape[0]]
+    m_r, c_r = tref.embedding_join_ref(meta, *cpu[1:])
+    assert torch.equal(matched.cpu()[:, inside], m_r)
+    assert torch.equal(count.cpu()[:, inside], c_r)
 
 
 @pytest.mark.cuda
@@ -457,13 +502,19 @@ def test_ctypes_signatures_match_the_sources():
     import re
 
     from repro_torch.kernels import build
-    found = {}
+    found, names = {}, {}
     for path in sorted(build._CSRC.glob("*.cu")):
         for name, params in re.findall(r'extern "C" int (\w+)\((.*?)\)',
                                        path.read_text(), re.S):
             kinds = [p.strip().rsplit(" ", 1)[0] for p in params.split(",")]
+            names[name] = [p.strip().rsplit(" ", 1)[1]
+                           for p in params.split(",")]
             assert kinds[-1] == "void*", f"{name}: the stream comes last"
             n_ptr = sum(k.endswith("void*") for k in kinds[:-1])
             assert kinds[n_ptr:-1] == ["int"] * (len(kinds) - 1 - n_ptr)
             found[name] = (n_ptr, len(kinds) - 1 - n_ptr)
     assert found == build._ENTRIES
+    # the three joins take their geometry from build.join_geometry
+    for name in ("fused_level_packed_launch", "fused_level_launch",
+                 "embedding_join_launch"):
+        assert names[name][-3:] == ["threads", "smem", "stream"], name

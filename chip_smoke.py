@@ -36,11 +36,33 @@ is present, or when the port is not next to it.  Phases:
                packed shuffle and wire, as in the JAX package;
   7. legacy  — the same database with ``pipeline="legacy"`` and backend
                "pallas": the two-program pipeline, several host round
-               trips per level by design.
+               trips per level by design;
+  8. multi-worker — two ranks of a gloo group, each a spawned process on
+               the one card (NCCL refuses two ranks on one GPU): the
+               conformance matrix (sharded wire x partition scheme x
+               overlapped candgen, plus psum) on the conformance DB and
+               a 20-graph molecule-like DB, the skewed DB of
+               ``tests/test_elastic.py`` under single-sync and the legacy
+               two-launch pipeline (a rebalance must fire), then phase
+               4's 40,000-graph run at W=2, 4 partitions a rank; every
+               rank against ``mine_host`` (phase 4's result for 40K),
+               each rank's launches and wire fetches per level printed;
+  9. nccl    — a one-rank NCCL group (``MiningMesh.from_process_group``)
+               mining the small DBs with the fused and two-launch
+               backends: the level program's collectives on the
+               production backend, every dispatch under sync debug mode
+               'error', one wire fetch per level.
+
+Each rank of phases 8 and 9 carries its group's collective timeout and
+is killed when its phase outlasts it, so a rank that raises fails the
+phase instead of hanging it; gloo stages phase 8's collectives through
+host memory.
 
 Every main run counts kernel launches (set to 0 just before the run,
 read just after) and checks the frequent set against ``mine_host``
-(phases 6 and 7 against phase 4's oracle result).  The single-sync runs
+(phases 6 and 7 against phase 4's oracle result); the two main
+databases' oracles run in processes of their own, beside the card's
+work.  The single-sync runs
 (4, 5, 6) run every level dispatch under
 ``torch.cuda.set_sync_debug_mode("error")`` so that the wire fetch is
 the level's only device→host transfer, and require every level's audit
@@ -60,6 +82,7 @@ the last line is the run's JSON verdict.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -592,17 +615,53 @@ def make_db(label: str, n_graphs: int, seed: int):
     return graphs
 
 
-def main_run(label: str, graphs, packed: bool, want=None, **cfg_kw):
+@contextlib.contextmanager
+def level_guard(sync_debug: bool):
+    """Count the single-sync level dispatches and each level's wire
+    fetches (yielded as ``{"dispatch": n, "fetch": {level: n}}``); with
+    ``sync_debug`` every dispatch runs under sync debug mode 'error', so
+    that a device→host read inside it raises."""
+    import torch
+    import repro_torch.core.level_step as level_step
+    import repro_torch.core.mining as mining
+    orig_dispatch = mining.dispatch_level
+    orig_finish = level_step.PendingLevel.finish
+    counts = {"dispatch": 0, "fetch": {}}
+
+    def guarded_dispatch(*args, **kw):
+        counts["dispatch"] += 1
+        if not sync_debug:
+            return orig_dispatch(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig_dispatch(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def counted_finish(self):
+        counts["fetch"][self.level] = counts["fetch"].get(self.level, 0) + 1
+        return orig_finish(self)
+
+    mining.dispatch_level = guarded_dispatch
+    level_step.PendingLevel.finish = counted_finish
+    try:
+        yield counts
+    finally:
+        mining.dispatch_level = orig_dispatch
+        level_step.PendingLevel.finish = orig_finish
+
+
+def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
     """Drive Mirage.fit at full scale (``MAIN_CFG`` plus ``cfg_kw``) and
-    check it against ``mine_host`` (``want``, computed here when None);
-    returns (result, launches, seconds, want).  Nothing of the run is
+    check it against ``mine_host`` (``want``: the result, or the future
+    of the oracle process computing it beside the fit); returns (result,
+    launches, seconds, want).  Nothing of the run is
     held past a level, so the peak memory and the survivor caps are the
     miner's own.  A single-sync run has every level dispatch under sync
     debug mode 'error' and must make one wire fetch per level."""
     import torch
-    import repro_torch.core.level_step as level_step
     import repro_torch.core.mining as mining
-    from repro_torch.core.host_miner import mine_host
 
     n_graphs = len(graphs)
     cfg = mining.MirageConfig(**MAIN_CFG, **cfg_kw)
@@ -612,27 +671,7 @@ def main_run(label: str, graphs, packed: bool, want=None, **cfg_kw):
           f"{n_graphs} graphs")
     single_sync = cfg.pipeline == "single_sync"
 
-    orig_dispatch = mining.dispatch_level
-    orig_finish = level_step.PendingLevel.finish
-    counts = {"dispatch": 0, "fetch": 0}
-
-    def guarded_dispatch(*args, **kw):
-        torch.cuda.synchronize()
-        counts["dispatch"] += 1
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return orig_dispatch(*args, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-
-    def counted_finish(self):
-        counts["fetch"] += 1
-        return orig_finish(self)
-
-    if single_sync:
-        mining.dispatch_level = guarded_dispatch
-        level_step.PendingLevel.finish = counted_finish
-    try:
+    with level_guard(sync_debug=True) as counts:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -641,17 +680,15 @@ def main_run(label: str, graphs, packed: bool, want=None, **cfg_kw):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         launches = launch_counts()
-    finally:
-        mining.dispatch_level = orig_dispatch
-        level_step.PendingLevel.finish = orig_finish
     peak = torch.cuda.max_memory_allocated()
 
     n_levels = len(res.stats)
     audits = [st.audit for st in res.stats]
     check(n_levels >= 1, "the main run mined no level past 1")
     if single_sync:
-        check(counts["dispatch"] == n_levels == counts["fetch"],
-              f"{counts['dispatch']} dispatches / {counts['fetch']} wire "
+        fetches = sum(counts["fetch"].values())
+        check(counts["dispatch"] == n_levels == fetches,
+              f"{counts['dispatch']} dispatches / {fetches} wire "
               f"fetches for {n_levels} levels")
     check(all(w == 0 for w in audits),
           f"audit words {audits} (0 = every device check passed)")
@@ -671,12 +708,13 @@ def main_run(label: str, graphs, packed: bool, want=None, **cfg_kw):
             f"under sync debug mode 'error' with 1 wire fetch each; audit "
             f"words {audits}")
 
-    t2 = time.perf_counter()
-    if want is None:
-        frequent = mine_host(graphs, res.minsup,
-                             max_size=cfg.max_size).frequent
-        want = sorted((c, i.support) for c, i in frequent.items())
-        say(f"phase {label}: mine_host took {time.perf_counter() - t2:.1f}s")
+    check(res.minsup == main_minsup(n_graphs),
+          f"minsup {res.minsup}, the oracle's is {main_minsup(n_graphs)}")
+    if not isinstance(want, list):
+        t2 = time.perf_counter()
+        want = want.result()
+        say(f"phase {label}: mine_host, run beside the card's work, was "
+            f"ready {time.perf_counter() - t2:.1f}s after the fit")
     check(sorted(res.supports.items()) == want,
           "the frequent set differs from mine_host")
     say(f"phase {label}: frequent set and supports equal mine_host")
@@ -820,6 +858,285 @@ def two_launch_records(args, launches: dict) -> list[dict]:
                    plain_r, br_ms, br_by, lib_r)]
 
 
+# ---------------------------------------------------------------------------
+# multi-worker phases: one rank per worker, each in a process of its own
+# ---------------------------------------------------------------------------
+
+RANK_DIR = ROOT / "build" / "chip_smoke_ranks"
+CONFORMANCE_DB = ("random_db", (("n_graphs", 18), ("n_vertices", 6),
+                                ("extra_edge_prob", 0.35), ("n_vlabels", 3),
+                                ("n_elabels", 2), ("seed", 42)))
+PUBCHEM20_DB = ("pubchem_like_db", (("n_graphs", 20), ("seed", 1),
+                                    ("avg_edges", 14.0)))
+TOY_DB = ("paper_toy_db", ())
+SKEW_DB = ("skewed_db", ())
+MAIN40_DB = ("pubchem_like_db", (("n_graphs", 40_000), ("seed", 0),
+                                 ("avg_edges", 28)))
+MAIN80_DB = ("pubchem_like_db", (("n_graphs", 80_000), ("seed", 1),
+                                 ("avg_edges", 28)))
+
+
+def main_minsup(n_graphs: int) -> int:
+    """``MAIN_CFG``'s fractional minsup as the absolute count the miner
+    derives from it."""
+    import math
+    return math.ceil(MAIN_CFG["minsup"] * n_graphs)
+
+
+def use_src() -> None:
+    """Import the port from this checkout (in a spawned process too)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+
+
+def make_graphs(spec):
+    """The graphs of a DB spec ``(generator name, kwargs pairs)``; the
+    skewed DB is ``tests/test_elastic.py``'s (scheme 1 deals every heavy
+    graph to partition 0)."""
+    from repro_torch.core import graphdb
+    name, kw = spec
+    if name == "skewed_db":
+        heavy = iter(graphdb.random_db(6, n_vertices=9, extra_edge_prob=0.6,
+                                       n_vlabels=2, n_elabels=1, seed=1))
+        light = iter(graphdb.random_db(18, n_vertices=3,
+                                       extra_edge_prob=0.2, n_vlabels=2,
+                                       n_elabels=1, seed=2))
+        return [next(heavy) if i % 4 == 0 else next(light)
+                for i in range(24)]
+    return getattr(graphdb, name)(**dict(kw))
+
+
+def mine_on_rank(mesh, graphs, cfg_kw: dict, sync_debug: bool) -> dict:
+    """One fit on this rank, kernel launches counted from 0, each level's
+    wire fetches counted, every dispatch under sync debug mode 'error'
+    when ``sync_debug``."""
+    import torch
+    import repro_torch.core.mining as mining
+    with level_guard(sync_debug) as counts:
+        miner = mining.Mirage(mining.MirageConfig(**cfg_kw), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = miner.fit(graphs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+    return {"supports": sorted(res.supports.items()), "seconds": secs,
+            "launches": launches, "fetches": counts["fetch"],
+            "peak": torch.cuda.max_memory_allocated(),
+            "backend": miner.backend, "counts": res.counts(),
+            "stats": [(st.level, st.n_candidates, st.n_frequent,
+                       st.rebalanced, st.imbalance, st.seconds,
+                       st.map_seconds, st.survivor_cap, st.retried,
+                       st.audit) for st in res.stats]}
+
+
+def rank_main(rank: int, world: int, backend: str, store: str, runs,
+              out: str, group_timeout: float) -> None:
+    """A worker rank: joins the process group (``backend`` over a
+    FileStore, every collective bounded by ``group_timeout`` seconds) on
+    cuda:0, mines each of ``runs`` — ``(name, DB spec, config)`` — and
+    writes its results to ``out``."""
+    use_src()
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.mapreduce import MiningMesh
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=group_timeout), **kw)
+    try:
+        mesh = MiningMesh.from_process_group(dist.group.WORLD, device)
+        graphs, results = {}, {}
+        for name, db, cfg_kw in runs:
+            if db not in graphs:
+                graphs[db] = make_graphs(db)
+            results[name] = mine_on_rank(mesh, graphs[db], cfg_kw,
+                                         sync_debug=backend == "nccl")
+        with open(out, "wb") as f:
+            pickle.dump(results, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(label: str, world: int, backend: str, runs,
+                timeout: float) -> list[dict]:
+    """Run ``runs`` on ``world`` ranks of a ``backend`` group, each rank a
+    spawned process on cuda:0; every collective of the group gives up
+    after ``timeout`` seconds and every rank is killed when the phase
+    takes longer than that, so that a rank that raises fails the phase
+    instead of hanging it.  Returns each rank's results."""
+    import multiprocessing
+    import pickle
+    RANK_DIR.mkdir(parents=True, exist_ok=True)
+    store = RANK_DIR / f"{label}.store"
+    outs = [RANK_DIR / f"{label}.rank{r}.pkl" for r in range(world)]
+    for path in (store, *outs):
+        path.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(
+        r, world, backend, str(store), runs, str(outs[r]), timeout))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+    check(not hung, f"{label}: ranks {hung} still running after {timeout}s")
+    codes = [p.exitcode for p in procs]
+    check(all(c == 0 for c in codes), f"{label}: rank exit codes {codes}")
+    results = []
+    for path in outs:
+        with open(path, "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def oracle(spec, minsup, max_size):
+    """``mine_host``'s frequent set of the DB ``spec`` as sorted (code,
+    support) pairs."""
+    use_src()
+    from repro_torch.core.host_miner import mine_host
+    return sorted((c, i.support) for c, i in mine_host(
+        make_graphs(spec), minsup, max_size=max_size).frequent.items())
+
+
+def check_ranks(label: str, results: list[dict], want: dict) -> None:
+    """Every rank of every run equals its oracle (``want[name]``), with
+    one wire fetch per level and audit words 0 on a single-sync run."""
+    for r, res in enumerate(results):
+        for name, got in res.items():
+            check(got["supports"] == want[name],
+                  f"{label} {name} rank {r}: the frequent set differs from "
+                  f"mine_host")
+            if got["fetches"]:
+                check(set(got["fetches"].values()) == {1}
+                      and len(got["fetches"]) == len(got["stats"]),
+                      f"{label} {name} rank {r}: wire fetches per level "
+                      f"{got['fetches']} over {len(got['stats'])} levels")
+            check(all(st[-1] == 0 for st in got["stats"]),
+                  f"{label} {name} rank {r}: audit words "
+                  f"{[st[-1] for st in got['stats']]}")
+
+
+def phase_multiworker_small() -> None:
+    """Phase 8 (a, b): two gloo ranks on the one card mine the conformance
+    matrix and the skewed DB."""
+    import itertools
+    runs, want = [], {}
+    for db, minsup, max_size in ((CONFORMANCE_DB, 5, 3),
+                                 (PUBCHEM20_DB, 5, 4)):
+        ref = oracle(db, minsup, max_size)
+        base = dict(minsup=minsup, n_partitions=8, max_size=max_size)
+        for sharded, scheme, overlap in itertools.product(
+                (True, False), (2, "density"), (True, False)):
+            name = f"{db[0]} sharded={sharded} scheme={scheme} " \
+                   f"overlap={overlap}"
+            runs.append((name, db, dict(
+                base, reduce="reduce_scatter", sharded_wire=sharded,
+                scheme=scheme, overlap_candgen=overlap)))
+            want[name] = ref
+        runs.append((f"{db[0]} psum", db, dict(base, reduce="psum")))
+        want[f"{db[0]} psum"] = ref
+    skew_ref = oracle(SKEW_DB, 6, 3)
+    skew = dict(minsup=6, n_partitions=4, scheme=1, max_size=3,
+                rebalance=True, rebalance_threshold=1.1)
+    for name, kw in (("skew single_sync", {}),
+                     ("skew legacy pallas", dict(pipeline="legacy",
+                                                 backend="pallas"))):
+        runs.append((name, SKEW_DB, dict(skew, **kw)))
+        want[name] = skew_ref
+    t0 = time.perf_counter()
+    results = spawn_ranks("phase8-small", 2, "gloo", runs, timeout=300)
+    check_ranks("phase 8", results, want)
+    for r, res in enumerate(results):
+        for name in ("skew single_sync", "skew legacy pallas"):
+            got = res[name]
+            check(any(st[3] for st in got["stats"]),
+                  f"phase 8 {name} rank {r}: no rebalance fired "
+                  f"(imbalance {[st[4] for st in got['stats']]})")
+            say(f"phase 8 rank {r} {name}: (level, rebalanced, imbalance) "
+                f"{[(st[0], st[3], st[4]) for st in got['stats']]}, "
+                f"launches {got['launches']}, wire fetches per level "
+                f"{got['fetches']}")
+        b1 = sum(v["launches"]["fused_level_packed"] for v in res.values())
+        check(b1 > 0, f"phase 8 rank {r}: the packed kernel never launched")
+    say(f"phase 8 small: 2 gloo ranks on cuda:0, {len(runs)} fits each "
+        f"(conformance and pubchem-like 20 matrix: sharded x scheme x "
+        f"overlap + psum; skewed DB single-sync and legacy two-launch), "
+        f"every rank equal to mine_host, a rebalance on the skewed DB "
+        f"under both pipelines, 1 wire fetch per level "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
+def phase_multiworker_main(want40) -> None:
+    """Phase 8 (c): the packed 40K main run at W=2, 4 partitions a rank,
+    two gloo ranks sharing the one card."""
+    t0 = time.perf_counter()
+    results = spawn_ranks("phase8-main", 2, "gloo",
+                          [("40K", MAIN40_DB, dict(MAIN_CFG))], timeout=900)
+    check_ranks("phase 8 main", results, {"40K": want40})
+    for r, res in enumerate(results):
+        got = res["40K"]
+        n = len(got["stats"])
+        check(got["launches"]["fused_level_packed"] == n,
+              f"phase 8 rank {r}: {got['launches']} launches over {n} "
+              f"levels (the packed kernel once a level)")
+        say(f"phase 8 main rank {r}: backend={got['backend']} fit "
+            f"{got['seconds']:.2f}s, frequent per level {got['counts']}, "
+            f"peak device memory {got['peak']} bytes, kernel launches "
+            f"{got['launches']}, wire fetches per level {got['fetches']}")
+        for (lv, nc, nf, reb, imb, secs, msecs, cap, retried,
+             audit) in got["stats"]:
+            say(f"  rank {r} level {lv}: candidates={nc} frequent={nf} "
+                f"{secs:.3f}s (device+wire {msecs:.3f}s) "
+                f"survivor_cap={cap} retried={retried} rebalanced={reb} "
+                f"imbalance={imb:.4f} audit={audit}")
+    say(f"phase 8 main: pubchem_like_db(40000) at W=2 on one card equals "
+        f"mine_host on both ranks ({time.perf_counter() - t0:.1f}s with "
+        f"the ranks' start, DB and prep)")
+
+
+def phase_nccl() -> None:
+    """Phase 9: a one-rank NCCL group on the card mines the small DBs,
+    every level dispatch under sync debug mode 'error'."""
+    runs, want = [], {}
+    for db, minsup, max_size in ((TOY_DB, 2, None), (CONFORMANCE_DB, 5, 3),
+                                 (PUBCHEM20_DB, 5, 4)):
+        for name, kw in ((f"{db[0]} fused", {}),
+                         (f"{db[0]} pallas", dict(backend="pallas"))):
+            runs.append((name, db, dict(minsup=minsup, max_size=max_size,
+                                        n_partitions=2, **kw)))
+            want[name] = oracle(db, minsup, max_size)
+    t0 = time.perf_counter()
+    results = spawn_ranks("phase9", 1, "nccl", runs, timeout=300)
+    check_ranks("phase 9", results, want)
+    res = results[0]
+    levels = sum(len(v["stats"]) for v in res.values())
+    launches = {k: sum(v["launches"][k] for v in res.values())
+                for k in next(iter(res.values()))["launches"]}
+    check(launches["fused_level_packed"] > 0
+          and launches["embedding_join"] > 0,
+          f"phase 9: kernel launches {launches}")
+    say(f"phase 9 nccl: a one-rank NCCL group on cuda:0, {len(runs)} fits "
+        f"(3 DBs x fused, two-launch) equal to mine_host; {levels} level "
+        f"dispatches ran their collectives under sync debug mode 'error' "
+        f"with 1 wire fetch each; kernel launches {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -832,14 +1149,25 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         say(f"FAIL: the port is not next to this script ({SRC})")
         return 2
-    sys.path.insert(0, str(SRC))
+    use_src()
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
     t_start = time.perf_counter()
+    # the host oracle of the two main runs, each in a process of its own
+    # beside the card's work (they take minutes of host time)
+    pool = ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
     try:
         card = phase_device()
         phase_parity_small()
         phase_small()
+        oracle40 = pool.submit(oracle, MAIN40_DB, main_minsup(40_000),
+                               MAIN_CFG["max_size"])
+        oracle80 = pool.submit(oracle, MAIN80_DB, main_minsup(80_000),
+                               MAIN_CFG["max_size"])
         graphs40 = make_db("4 packed", 40_000, 0)
-        _, launches4, _, want40 = main_run("4 packed", graphs40, True)
+        _, launches4, _, want40 = main_run("4 packed", graphs40, True,
+                                           oracle40)
         check(launches4["fused_level_packed"] > 0,
               "the packed kernel never launched on the main path")
         args4 = level2_inputs(graphs40, "fused_level_packed")
@@ -848,7 +1176,7 @@ def main() -> int:
         del args4
         torch.cuda.empty_cache()
         graphs80 = make_db("5 dense", 80_000, 1)
-        _, launches5, _, _ = main_run("5 dense", graphs80, False)
+        _, launches5, _, _ = main_run("5 dense", graphs80, False, oracle80)
         check(launches5["fused_level"] > 0,
               "the dense kernel never launched on the main path")
         args5 = level2_inputs(graphs80, "fused_level")
@@ -858,7 +1186,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         res6, launches6, _, _ = main_run("6 two-launch", graphs40, True,
-                                         want=want40, backend="pallas")
+                                         want40, backend="pallas")
         n6 = len(res6.stats)
         check(launches6["embedding_join"] == launches6["support_count"]
               == n6, f"the two-launch kernels launched {launches6} times "
@@ -871,14 +1199,22 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         _, launches7, _, _ = main_run("7 legacy", graphs40, False,
-                                      want=want40, pipeline="legacy",
+                                      want40, pipeline="legacy",
                                       backend="pallas")
         check(launches7["embedding_join"] > 0
               and launches7["support_count"] > 0,
               "the two-launch kernels never launched on the legacy path")
+        del graphs40
+        torch.cuda.empty_cache()
+
+        phase_multiworker_small()
+        phase_multiworker_main(want40)
+        phase_nccl()
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1
+    finally:
+        pool.shutdown(cancel_futures=True)
     say(f"every phase passed in {time.perf_counter() - t_start:.1f}s")
     print(card, flush=True)
     print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two]}),

@@ -1,28 +1,37 @@
-"""Single-sync level program at one worker (DESIGN.md §8).
+"""Single-sync level program (DESIGN.md §8), on every worker's rank.
 
 One mining level runs as ONE stretch of device work queued on the
-current stream — the port of ``repro.core.level_step._level_program``:
+current stream — the port of ``repro.core.level_step._level_program``;
+each rank runs it over its own block of partitions:
 
   1. pass-1 support counting   (the fused kernel, the two-launch
                                 kernels, or the plain join)
-  2. the shuffle               (identity collectives at W=1,
-                                ``mapreduce.reduce_supports``)
+  2. the shuffle               (``mapreduce.reduce_supports``: the
+                                collectives of the rank's process group)
   3. survivor compaction       (verdict-masked prefix-sum rank, one
                                 scatter; survivor metadata gathered to the
                                 front, padded to a static cap S)
   4. the audit word            (device-side invariant checks, §14)
   5. pass-2 materialization    (child OLs for the S compact slots)
-  6. the wire                  (supports | scalars | perm | checksum)
+  6. the straggler rebalance   (the (NP,) partition costs all-gathered,
+                                so every rank takes the same LPT
+                                decision)
+  7. the wire                  (supports | scalars | perm | checksum)
 
 Nothing in it reads a device value back before the wire: the host learns
 the survivor count from the wire itself, so pass 2 runs over all S slots
 and masks the invalid ones (the JAX program's ``lax.cond`` skip has no
-eager counterpart).  The host receives exactly ONE device→host transfer
+eager counterpart).  Each rank receives exactly ONE device→host transfer
 per level, the int32 wire (see ``repro.core.level_step`` for the
-layouts; with one worker the sharded layout is the dense one):
+layouts).  With the sharded layout each rank packs its own shard — its
+Cp/W support slice, the replicated scalars and perm, a shard checksum —
+and the shards are all-gathered on the device, because every rank needs
+the whole wire to drive the next level; the host then verifies each
+shard's checksum.  A rank's shard is laid out as:
 
-  [0:Cp]      global support per (padded) candidate — with ``packed``,
-              two uint16 supports per int32 word (ceil(Cp/2) words)
+  [0:Cp/W]    global support per (padded) candidate of the rank's key
+              slice (all Cp with the dense layout) — with ``packed``,
+              two uint16 supports per int32 word
   [+0]        true survivor count (may exceed the cap S — driver retries)
   [+1]        overflow (matches dropped by the M cap, survivors only)
   [+2]        rebalanced flag (0/1)
@@ -43,6 +52,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.fused_level import DEFAULT_TILE_C
 from ..kernels.ops import (device_local_supports, fused_level_supports,
@@ -55,7 +65,8 @@ from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
 
 __all__ = ["LevelWire", "LevelOutputs", "PendingLevel", "dispatch_level",
            "unpack_wire", "reassemble_wire", "wire_words",
-           "wire_checksum", "level_program", "AUDIT_MONOTONIC",
+           "wire_cost_model", "wire_checksum", "level_program",
+           "lpt_permutation", "permute_stores", "AUDIT_MONOTONIC",
            "AUDIT_COMPACT", "AUDIT_RANGE", "AUDIT_NKEEP"]
 
 _IMBAL_FX = 1 << 16
@@ -138,6 +149,42 @@ def reassemble_wire(host: np.ndarray, n_partitions: int,
     return np.concatenate([gsup.reshape(-1), shards[0, gw:-1]])
 
 
+def wire_cost_model(cp: int, n_partitions: int, n_workers: int, *,
+                    reduce: str, sharded: Optional[bool] = None,
+                    packed: bool = False) -> dict:
+    """Modeled per-worker wire bytes for one level (the JAX package's
+    model, ``repro.core.level_step.wire_cost_model``): ``host_bytes`` the
+    level wire this worker's host reads in the JAX package's
+    single-controller layout, ``collective_bytes`` the bytes it moves in
+    the shuffle's collectives (ring factors).  ``psum``: dense wire plus
+    a 2(W-1)/W·Cp·4 B all-reduce; dense ``reduce_scatter``: scatter
+    (4 B), verdict (1 B) and support (4 B) gathers; sharded: the support
+    gather goes, the (NP,) cost vector is gathered, and the host reads
+    its own shard.  ``packed`` ships the verdicts as bit lanes and the
+    supports as two uint16 per word."""
+    W = n_workers
+    if sharded is None:
+        sharded = reduce == "reduce_scatter"
+    ring = (W - 1) / W
+    tail = _N_SCALARS + n_partitions + 1          # scalars + perm + csum
+    vbytes = (-(-cp // 32) * 4) if packed else cp * 1   # verdict gather
+
+    def gw(n):                                    # gsup words on the wire
+        return -(-n // 2) if packed else n
+
+    if reduce == "psum":
+        coll = 2 * ring * cp * 4
+        host = (gw(cp) + tail) * 4
+    elif not sharded:
+        coll = ring * (cp * 4 + vbytes + cp * 4)
+        host = (gw(cp) + tail) * 4
+    else:
+        coll = ring * (cp * 4 + vbytes + n_partitions * 4)
+        host = (gw(cp // W) + tail) * 4
+    return {"host_bytes": host, "collective_bytes": coll,
+            "total_bytes": host + coll}
+
+
 @dataclasses.dataclass
 class LevelWire:
     """Host view of the single per-level transfer."""
@@ -156,8 +203,8 @@ class LevelOutputs:
     """Device-resident results of one level."""
 
     wire: LevelWire
-    pol: torch.Tensor       # (NP, S, G, M, K') — compact survivor OLs
-    pmask: torch.Tensor     # (NP, S, G, M)
+    pol: torch.Tensor       # (NP/W, S, G, M, K') — compact survivor OLs
+    pmask: torch.Tensor     # (NP/W, S, G, M)
 
 
 def _pack_wire(gsup, n_keep, overflow, do_reb, imbal, audit, perm, *,
@@ -179,14 +226,65 @@ def _pack_wire(gsup, n_keep, overflow, do_reb, imbal, audit, perm, *,
     return torch.cat([body, wire_checksum(body).reshape(1)])
 
 
-def level_program(c_real: int, psup: torch.Tensor, *args,
+def lpt_permutation(cost: torch.Tensor, n_workers: int) -> torch.Tensor:
+    """Device LPT repack, the twin of ``repro.core.level_step.
+    lpt_permutation`` and of ``mining._lpt_order``: heaviest partition
+    first onto the lightest worker bucket with room; returns the (NP,)
+    int32 permutation laying the buckets contiguously (the blocked
+    partition→worker rule).  NP is small, so the sequential loop is a
+    few dozen tiny device ops that never read back to the host."""
+    npn = cost.shape[0]
+    per = npn // n_workers
+    dev = cost.device
+    order = torch.argsort(-cost, stable=True)
+    buckets = torch.arange(n_workers, device=dev)
+    slots = torch.arange(npn, device=dev)
+    load = torch.zeros(n_workers, dtype=cost.dtype, device=dev)
+    cnt = torch.zeros(n_workers, dtype=torch.int64, device=dev)
+    pos = torch.zeros(npn, dtype=torch.int32, device=dev)
+    inf = torch.full((), float("inf"), dtype=cost.dtype, device=dev)
+    for i in range(npn):
+        # one-element index tensors throughout: indexing with a 0-dim
+        # device tensor would read it back to the host
+        item = order[i:i + 1]
+        b = torch.where(cnt < per, load, inf).argmin().reshape(1)
+        onto = buckets == b
+        pos = torch.where(slots == b * per + cnt.gather(0, b),
+                          item.to(torch.int32), pos)
+        load = load + torch.where(onto, cost.index_select(0, item), 0)
+        cnt = cnt + onto
+    return pos
+
+
+def _rebalance(cost: torch.Tensor, n_workers: int, rebalance: bool,
+               threshold: float):
+    """The straggler decision over the (NP,) partition costs: (fired,
+    imbalance, permutation).  It needs more than one worker."""
+    NP = cost.shape[0]
+    imbal = worker_imbalance(cost, n_workers)
+    ident = torch.arange(NP, dtype=torch.int32, device=cost.device)
+    if rebalance and n_workers > 1:
+        do_reb = imbal > threshold
+        perm = torch.where(
+            do_reb, lpt_permutation(cost.to(torch.float32), n_workers),
+            ident)
+    else:
+        do_reb = torch.zeros((), dtype=torch.bool, device=cost.device)
+        perm = ident
+    return do_reb, imbal, perm
+
+
+def level_program(mesh: MiningMesh, c_real: int, psup: torch.Tensor, *args,
                   minsup: int, backend: str, reduce: str,
                   max_embeddings: int, survivor_cap: int,
                   child_width: Optional[int], sharded: bool,
                   packed: bool = False, n_graphs: int = -1,
-                  n_workers: int = 1):
-    """One level's device work: returns ``(wire, ol, mask)``, all on the
-    stores' device, without reading anything back to the host.
+                  rebalance: bool = False, threshold: float = 1.25):
+    """One level's device work on this rank: returns ``(wire, ol,
+    mask)``, all on the stores' device, without reading anything back to
+    the host.  ``wire`` is the whole wire (every rank's shard, gathered,
+    with the sharded layout); ``ol``/``mask`` are this rank's block of
+    the child store.
 
     ``args`` is ``(sched_meta, tiles, inv, pol, pmask, src, dst, emask)``
     for the fused backends and ``(meta, meta_host, pol, pmask, src, dst,
@@ -197,9 +295,10 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
     ref backends do, so their supports ride in the wire's padded tail.
     The true candidate count ``c_real`` masks the padded rows.
 
-    The straggler rebalance needs more than one worker: at W=1 the
-    imbalance is computed (it is 1.0) and the wire reports no rebalance
-    and the identity permutation, as the JAX program does."""
+    The straggler rebalance (``rebalance``, trigger ``threshold`` on the
+    max/mean worker cost) needs more than one worker; otherwise the wire
+    reports no rebalance and the identity permutation, as the JAX
+    program does."""
     if sharded and reduce != "reduce_scatter":
         raise ValueError(
             f"the sharded wire needs reduce='reduce_scatter' (each worker "
@@ -223,7 +322,10 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
             src, dst, emask, backend=backend, packed=packed)
     dev = pol.device
 
-    gsup, verdict = reduce_supports(local_sup, minsup, reduce, packed=packed)
+    # sharded: gsup stays this rank's (Cp/W,) key slice; only the
+    # verdicts are gathered
+    gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
+                                    gather_gsup=not sharded, packed=packed)
     Cp = verdict.shape[0]
     real = torch.arange(Cp, device=dev) < c_real
     keep = (verdict != 0) & real
@@ -241,22 +343,25 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
 
     # continuous invariant audit (§14): psup is PARENT-indexed (-1 =
     # unknown / padding); each candidate gathers its parent's support
-    # through the meta parent column
+    # through the meta parent column.  Sharded, gsup is this rank's key
+    # slice: the slice-local violation counts are summed over the ranks
     par = meta_can[:, 0].to(torch.int64)
     Pn = psup.shape[0]
     psc = torch.where((par >= 0) & (par < Pn),
                       psup.index_select(0, par.clamp(0, Pn - 1)), -1)
+    if sharded:
+        cs_a = gsup.shape[0]
+        lo = mesh.rank * cs_a
+        psl = psc[lo:lo + cs_a]
+        real_a = real[lo:lo + cs_a]
+    else:
+        psl, real_a = psc, real
     gs_a = gsup.to(torch.int32)
-    mono_bad = ((gs_a > psc) & real & (psc >= 0)).sum()
+    mono_bad = ((gs_a > psl) & real_a & (psl >= 0)).sum()
     if n_graphs >= 0:
-        rng_bad = (((gs_a < 0) | (gs_a > n_graphs)) & real).sum()
+        rng_bad = (((gs_a < 0) | (gs_a > n_graphs)) & real_a).sum()
     else:
         rng_bad = torch.zeros((), dtype=torch.int64, device=dev)
-    comp_bad = (valid_s & ~keep.index_select(0, surv)).sum()
-    audit = (torch.where(mono_bad > 0, AUDIT_MONOTONIC, 0)
-             | torch.where(comp_bad > 0, AUDIT_COMPACT, 0)
-             | torch.where(rng_bad > 0, AUDIT_RANGE, 0)
-             | torch.where(n_keep > c_real, AUDIT_NKEEP, 0))
 
     # pass 2 over every compact slot; invalid (cap-padding) slots are
     # computed and masked to the PAD fill — skipping them would need
@@ -266,7 +371,7 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
     Wk = child_width if child_width is not None else K + 1
     ol = torch.full((PP, S, G, Mc, Wk), -1, dtype=torch.int32, device=dev)
     mask = torch.zeros((PP, S, G, Mc), dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     parents = LevelOL(pol, pmask)
     for s in range(S):
         ch, mk, over = materialize_one(parents, src, dst, emask, cmeta[s],
@@ -276,14 +381,66 @@ def level_program(c_real: int, psup: torch.Tensor, *args,
         mask[:, s] = mk & v
         overflow += over * v
 
-    cost_pp = (emb_pp * real[None, :]).sum(1, dtype=torch.int32)
-    NP = cost_pp.shape[0]
-    imbal = worker_imbalance(cost_pp, n_workers)
-    do_reb = torch.zeros((), dtype=torch.bool, device=dev)
-    perm = torch.arange(NP, dtype=torch.int32, device=dev)
+    # one all-reduce for the counts every rank must agree on: the
+    # overflow, and the audit counts (slice-local when sharded; summing
+    # W equal replicated counts keeps them zero or not, all the word
+    # reads)
+    overflow, mono_bad, rng_bad = mesh.all_reduce(torch.stack(
+        [overflow, mono_bad.to(torch.int64), rng_bad.to(torch.int64)]))
+    comp_bad = (valid_s & ~keep.index_select(0, surv)).sum()
+    audit = (torch.where(mono_bad > 0, AUDIT_MONOTONIC, 0)
+             | torch.where(comp_bad > 0, AUDIT_COMPACT, 0)
+             | torch.where(rng_bad > 0, AUDIT_RANGE, 0)
+             | torch.where(n_keep > c_real, AUDIT_NKEEP, 0))
+
+    # the (NP,) partition costs, gathered so that every rank takes the
+    # identical rebalance decision
+    cost = mesh.all_gather((emb_pp * real[None, :]).sum(1, dtype=torch.int32))
+    do_reb, imbal, perm = _rebalance(cost, mesh.n_workers, rebalance,
+                                     threshold)
     wire = _pack_wire(gsup, n_keep, overflow, do_reb, imbal, audit, perm,
                       packed=packed)
+    if sharded:
+        wire = mesh.all_gather(wire)                # (W · shard,)
     return wire, ol, mask
+
+
+def permute_stores(mesh: MiningMesh, perm: np.ndarray, *arrays):
+    """Apply a wire-reported partition permutation to the rank's blocks
+    of the stores (pol, pmask, src, dst, emask): after it, global
+    position j holds the partition that was at ``perm[j]``.  Each rank
+    sends only its partitions, in one ``all_to_all_single`` per store
+    with per-rank split sizes along dim 0; ``perm`` came home in the
+    wire, so the splits are host ints and nothing is read back."""
+    W, r = mesh.n_workers, mesh.rank
+    perm = np.asarray(perm, np.int64)
+    per = perm.shape[0] // W
+    # the partitions this rank sends, grouped by destination rank and in
+    # the order of their new positions there
+    new_pos = np.argsort(perm, kind="stable")       # old index -> new
+    mine = np.arange(r * per, (r + 1) * per)
+    send = mine[np.argsort(new_pos[mine], kind="stable")]
+    send_counts = np.bincount(new_pos[send] // per, minlength=W)
+    # what arrives, grouped by source rank, each group in new-position
+    # order; ``take`` restores the new positions' order
+    wanted = perm[r * per:(r + 1) * per]
+    src_rank = wanted // per
+    recv_counts = np.bincount(src_rank, minlength=W)
+    arrival = np.argsort(src_rank, kind="stable")   # arrival slot -> pos
+    take = np.empty(per, np.int64)
+    take[arrival] = np.arange(per)
+    send_idx = torch.from_numpy(send - r * per)
+    take_idx = torch.from_numpy(take)
+    out = []
+    for a in arrays:
+        x = a.view(torch.uint8) if a.dtype == torch.bool else a
+        buf = x.index_select(0, send_idx.to(x.device))
+        got = torch.empty_like(buf)
+        dist.all_to_all_single(got, buf, recv_counts.tolist(),
+                               send_counts.tolist(), group=mesh.group)
+        got = got.index_select(0, take_idx.to(x.device))
+        out.append(got.view(torch.bool) if a.dtype == torch.bool else got)
+    return tuple(out)
 
 
 def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
@@ -358,9 +515,9 @@ def dispatch_level(
     mmesh: MiningMesh,
     meta_p: np.ndarray,       # (Cp, 5) padded candidate metadata (host)
     C_real: int,              # unpadded candidate count
-    pol: torch.Tensor,        # (NP, P, G, M, K)
+    pol: torch.Tensor,        # (NP/W, P, G, M, K) — the rank's block
     pmask: torch.Tensor,
-    src: torch.Tensor,        # (NP, T, G, F)
+    src: torch.Tensor,        # (NP/W, T, G, F)
     dst: torch.Tensor,
     emask: torch.Tensor,
     *,
@@ -369,6 +526,8 @@ def dispatch_level(
     reduce: str,
     max_embeddings: int,
     survivor_cap: int,
+    rebalance: bool = False,
+    threshold: float = 1.25,
     child_width: Optional[int] = None,
     sched_floor: Optional[int] = None,
     level: Optional[int] = None,
@@ -387,11 +546,12 @@ def dispatch_level(
     ``tile_c`` pins the schedule's tile width (None = the default 8).
     ``psup`` is the parent-indexed support vector for the audit word
     (-1 = unknown), padded to the store's parent axis; ``n_graphs`` arms
-    the support-range check (-1 disables it).  Returns a
-    :class:`PendingLevel`; the caller owns retry policy."""
+    the support-range check (-1 disables it).  ``rebalance`` and
+    ``threshold`` arm the straggler rebalance (more than one worker).
+    Returns a :class:`PendingLevel`; the caller owns retry policy."""
     Cp = meta_p.shape[0]
-    n_partitions = pol.shape[0]
     W = mmesh.n_workers
+    n_partitions = pol.shape[0] * W           # the perm and cost are global
     if sharded and Cp % W:
         raise ValueError(
             f"sharded wire needs the padded candidate count divisible by "
@@ -406,7 +566,7 @@ def dispatch_level(
     kw = dict(minsup=minsup, backend=backend, reduce=reduce,
               max_embeddings=max_embeddings, survivor_cap=survivor_cap,
               child_width=child_width, sharded=sharded, packed=packed,
-              n_graphs=n_graphs, n_workers=W)
+              n_graphs=n_graphs, rebalance=rebalance, threshold=threshold)
     if is_fused_backend(backend):
         tc = tile_c if tile_c is not None else DEFAULT_TILE_C
         if sched_floor is not None:
@@ -429,8 +589,8 @@ def dispatch_level(
                              "outside the stores")
         args = (upload(meta_p, dev), meta_p)
     wire_d, new_pol, new_pmask = level_program(
-        C_real, upload(psup_p, dev), *args, pol, pmask, src, dst, emask,
-        **kw)
+        mmesh, C_real, upload(psup_p, dev), *args, pol, pmask, src, dst,
+        emask, **kw)
     return PendingLevel(wire_d, new_pol, new_pmask, C_real, Cp,
                         n_partitions,
                         W if sharded else 1, level, packed)

@@ -1,11 +1,19 @@
-"""Map / shuffle / reduce phases of MIRAGE on one worker (W=1).
+"""Map / shuffle / reduce phases of MIRAGE over a pool of workers.
 
 The JAX package runs these as ``shard_map`` SPMD programs over a TPU
-mesh (``repro.core.mapreduce``).  This slice of the port runs one worker:
-the collectives of the shuffle are identities, but the code keeps their
-shape — the ``reduce_scatter`` shuffle still packs its verdicts to bit
-lanes and unpacks them again when ``packed`` is on — so the multi-worker
-slice (ROADMAP queue A item 8) only swaps in ``torch.distributed`` calls.
+mesh, one process driving every device (``repro.core.mapreduce``).  The
+port is multi-controller: one ``torch.distributed`` rank per worker,
+each rank running the same host driver on the same inputs and holding
+its block of the partition axis (``runtime/sharding.py``).  The
+shuffle's collectives run on the rank's device tensors:
+
+  psum                    → ``dist.all_reduce``
+  psum_scatter (tiled)    → ``dist.reduce_scatter_tensor``
+  all_gather (tiled)      → ``dist.all_gather_into_tensor``
+
+The process group's backend belongs to the caller: NCCL for one rank per
+card, gloo on the CPU.  ``MiningMesh.single_device()`` is the one-worker
+mesh with no process group: its collectives are identities.
 
 ``map_reduce_supports`` and ``map_materialize`` are the two programs of
 the legacy pipeline (support round, then pass 2, with host round trips
@@ -15,9 +23,13 @@ level program (``core/level_step.py``).
 from __future__ import annotations
 
 import dataclasses
+import socket
+import zlib
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.bitset import pack_bits, unpack_bits
 from ..kernels.ops import (device_local_supports, fused_level_supports,
@@ -31,16 +43,69 @@ __all__ = ["MiningMesh", "map_reduce_supports", "map_materialize",
 
 @dataclasses.dataclass(frozen=True)
 class MiningMesh:
-    """The worker pool of one run.  This slice of the port has one
-    worker: one device, every partition on it."""
+    """The worker pool of one run: one rank of ``group`` per worker, on
+    ``device``.  ``group=None`` is the one-worker mesh (no process
+    group; every collective is an identity).  ``ranks_per_device``
+    counts the ranks of the group that share this rank's device (they
+    share its memory too)."""
 
-    @property
-    def n_workers(self) -> int:
-        return 1
+    group: Optional["dist.ProcessGroup"] = None
+    rank: int = 0
+    n_workers: int = 1
+    device: Optional[torch.device] = None
+    ranks_per_device: int = 1
 
     @staticmethod
     def single_device() -> "MiningMesh":
         return MiningMesh()
+
+    @staticmethod
+    def from_process_group(group: "dist.ProcessGroup",
+                           device: torch.device | str) -> "MiningMesh":
+        """The mesh of an initialized process group, this rank working on
+        ``device``.  Collective over the group: the ranks exchange where
+        they run, to count those sharing this rank's device."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = MiningMesh(group, dist.get_rank(group),
+                          dist.get_world_size(group), device)
+        where = torch.tensor([[zlib.crc32(socket.gethostname().encode()),
+                               device.index if device.index is not None
+                               else -1]], dtype=torch.int64)
+        seen = mesh.all_gather(where.to(device)).cpu()
+        return dataclasses.replace(
+            mesh, ranks_per_device=int((seen == where).all(1).sum()))
+
+    def all_reduce(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        """Sum (or ``op``) of ``t`` over the workers, in place."""
+        if self.group is not None:
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every worker's ``t`` concatenated along dim 0, in rank order."""
+        if self.group is None:
+            return t
+        if t.dtype == torch.bool:
+            return self.all_gather(t.view(torch.uint8)).view(torch.bool)
+        out = t.new_empty((self.n_workers * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t.contiguous(), group=self.group)
+        return out
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This worker's block of dim 0 of the sum of ``t`` over the
+        workers (dim 0 must divide by the worker count)."""
+        if self.group is None:
+            return t
+        out = t.new_empty((t.shape[0] // self.n_workers, *t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t.contiguous(), group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        """Host barrier over the workers."""
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
 
 def worker_imbalance(cost: torch.Tensor, n_workers: int) -> torch.Tensor:
@@ -52,40 +117,52 @@ def worker_imbalance(cost: torch.Tensor, n_workers: int) -> torch.Tensor:
     return torch.where(mean > 0, per_worker.max() / mean, one)
 
 
-def reduce_supports(local_sup: torch.Tensor, minsup: int, reduce: str, *,
+def reduce_supports(local_sup: torch.Tensor, mesh: MiningMesh, minsup: int,
+                    reduce: str, *, gather_gsup: bool = False,
                     packed: bool = False):
     """The shuffle: dense-key aggregation of (C,) local supports into the
-    global supports and the int8 frequent verdicts.  With one worker the
-    psum, psum_scatter and all_gather are identities."""
+    global supports and the int8 frequent verdicts (C,).
+
+    ``psum`` gives every worker the whole support vector.
+    ``reduce_scatter`` gives each worker its contiguous C/W key shard
+    (the reducer owns a key range) and all-gathers only the verdicts —
+    and, with ``gather_gsup``, the supports.  With ``packed`` each worker
+    packs its verdict shard into ``ceil(C/W/32)`` words, the words are
+    gathered, and each shard unpacks ragged: bit-identical to the dense
+    exchange."""
     if reduce == "psum":
-        gsup = local_sup
+        gsup = mesh.all_reduce(local_sup)
         verdict = (gsup >= minsup).to(torch.int8)
     elif reduce == "reduce_scatter":
-        gsup = local_sup                                   # (C/W,) shard
+        gsup = mesh.reduce_scatter(local_sup)              # (C/W,) shard
         if packed:
             cs = gsup.shape[0]
-            words = pack_bits(gsup >= minsup)              # (ceil(cs/32),)
-            shards = words.reshape(-1, words.shape[0])     # (W, ww)
+            words = pack_bits(gsup >= minsup).view(torch.int32)
+            shards = mesh.all_gather(words).view(torch.uint32).reshape(
+                -1, words.shape[0])                        # (W, ww)
             verdict = unpack_bits(shards, cs).reshape(-1).to(torch.int8)
         else:
-            verdict = (gsup >= minsup).to(torch.int8)
+            verdict = mesh.all_gather((gsup >= minsup).to(torch.int8))
+        if gather_gsup:
+            gsup = mesh.all_gather(gsup)
     else:
         raise ValueError(f"unknown reduce {reduce!r}")
     return gsup, verdict
 
 
-def _support_program(meta, pol, pmask, src, dst, emask, *, minsup: int,
-                     backend: str, reduce: str):
+def _support_program(mesh, meta, pol, pmask, src, dst, emask, *,
+                     minsup: int, backend: str, reduce: str):
     """The support round of a non-fused backend: the map phase over the
-    device's partitions, then the shuffle."""
+    rank's partitions, then the shuffle."""
     local_sup, _local_emb, emb_pp = device_local_supports(
         meta, pol, pmask, src, dst, emask, backend=backend)
-    gsup, verdict = reduce_supports(local_sup, minsup, reduce)
+    gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
+                                    gather_gsup=True)
     return gsup, verdict, emb_pp
 
 
-def _support_program_fused(sched_meta, tiles, inv, pol, pmask, src, dst,
-                           emask, *, minsup: int, backend: str,
+def _support_program_fused(mesh, sched_meta, tiles, inv, pol, pmask, src,
+                           dst, emask, *, minsup: int, backend: str,
                            reduce: str):
     """The support round of a fused backend: ONE kernel launch covers
     every local partition and candidate tile.  Inputs are in scheduled
@@ -99,7 +176,8 @@ def _support_program_fused(sched_meta, tiles, inv, pol, pmask, src, dst,
                                                 pmask, src, dst, emask)
     local_sup = sup_pp.sum(0, dtype=torch.int32).index_select(0, inv)
     emb_pp = emb_pp_s.index_select(1, inv)               # (PP, C) canonical
-    gsup, verdict = reduce_supports(local_sup, minsup, reduce)
+    gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
+                                    gather_gsup=True)
     return gsup, verdict, emb_pp
 
 
@@ -109,8 +187,9 @@ def map_reduce_supports(mmesh: MiningMesh, meta, pol, pmask, src, dst,
     """One full map+shuffle+reduce support round of the legacy pipeline.
 
     Returns ``(global_support (C,), frequent_verdict (C,), per-partition
-    embed counts (NP, C))`` as host numpy, in canonical candidate order
-    for every backend.  The reduce_scatter variant needs the candidate
+    embed counts (NP, C))`` as host numpy on every rank, in canonical
+    candidate order for every backend: the supports and each rank's
+    (NP/W, C) embed counts are all-gathered before the host reads them.  The reduce_scatter variant needs the candidate
     axis divisible by the worker count; when it is not, the metadata is
     padded with the rows ``mining.py`` pads with and every output is
     sliced back to C.  The fused backends build the parent-grouped tile
@@ -126,23 +205,28 @@ def map_reduce_supports(mmesh: MiningMesh, meta, pol, pmask, src, dst,
     if is_fused_backend(backend):
         sched = schedule_candidates(meta)
         gsup, verdict, emb_pp = _support_program_fused(
-            *(torch.from_numpy(a).to(pol.device) for a in
+            mmesh, *(torch.from_numpy(a).to(pol.device) for a in
               (sched.meta, sched.tiles, sched.inv.astype(np.int64))),
             pol, pmask, src, dst, emask, **kw)
     else:
-        gsup, verdict, emb_pp = _support_program(meta, pol, pmask, src,
-                                                 dst, emask, **kw)
+        gsup, verdict, emb_pp = _support_program(mmesh, meta, pol, pmask,
+                                                 src, dst, emask, **kw)
+    emb_pp = mmesh.all_gather(emb_pp)                    # (NP, C)
     return (gsup.cpu().numpy()[:C], verdict.cpu().numpy()[:C],
             emb_pp.cpu().numpy()[:, :C])
 
 
-def map_materialize(keep_meta, pol, pmask, src, dst, emask, *,
-                    max_embeddings: int, out_width: int | None = None):
-    """Pass 2 for the retry path: the next level's OL store
-    (NP, C', G, M, W) for the surviving candidates ``keep_meta`` (host
-    rows) and the total overflow as a Python int (one device→host read,
-    as in the JAX package)."""
+def map_materialize(mmesh: MiningMesh, keep_meta, pol, pmask, src, dst,
+                    emask, *, max_embeddings: int,
+                    out_width: int | None = None):
+    """Pass 2 for the retry path: the rank's block (NP/W, C', G, M, W) of
+    the next level's OL store for the surviving candidates ``keep_meta``
+    (host rows) and the overflow summed over every worker as a Python
+    int (one device→host read, as in the JAX package).  Every rank sees
+    the same overflow, so every rank's escalation valve takes the same
+    decision."""
     lvl, over = materialize_ol(LevelOL(pol, pmask), src, dst, emask,
                                keep_meta, max_embeddings=max_embeddings,
                                out_width=out_width)
-    return lvl.ol, lvl.mask, int(over.sum())
+    total = mmesh.all_reduce(over.sum().to(torch.int64).reshape(1))
+    return lvl.ol, lvl.mask, int(total)

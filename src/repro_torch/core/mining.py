@@ -1,5 +1,5 @@
 """MIRAGE iterative mining driver (paper §IV-B/C, Figs. 9-10), single-sync
-and legacy pipelines at one worker.
+and legacy pipelines over one or more workers.
 
 Phases:
   1. data partition  — filter infrequent edges, split into NP partitions
@@ -15,7 +15,16 @@ Phases:
                        until no frequent patterns.
 
 This is the port of ``repro.core.mining`` for ``pipeline="single_sync"``
-and ``pipeline="legacy"`` at W=1.  The legacy pipeline runs the paper's
+and ``pipeline="legacy"``.  With a multi-worker ``MiningMesh`` every
+rank of its process group runs this driver on the same inputs: the host
+work (partitioning, candgen, schedule, bucket choices) is deterministic,
+so every rank takes the same decisions, and each rank holds its block
+of the partition axis (``runtime/sharding.py``).  Everything that shapes
+a collective comes from deterministic host code or from the wire, which
+every rank reads whole; the one other input, the free device memory
+behind the survivor cap, is agreed over the ranks.  The straggler
+rebalance permutes the partitions across the workers; a cumulative
+``order`` keeps checkpoints canonical.  The legacy pipeline runs the paper's
 two programs: a support round (``mapreduce.map_reduce_supports``) and a
 materialize round with host round trips between them, dense, psum
 by default, no shape buckets and no device audit word — the JAX
@@ -41,10 +50,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import (Backend, check_backend, default_backend,
                            is_fused_backend)
 from ..runtime import checkpoint as ckpt
+from ..runtime.sharding import partition_block
 from .auditor import Auditor
 from .buckets import BucketSpec, bucket_size, round_up_multiple
 from .candgen import (Candidate, EdgeAlphabet, filter_speculative,
@@ -52,7 +63,7 @@ from .candgen import (Candidate, EdgeAlphabet, filter_speculative,
 from .dfscode import Code, array_to_code, code_to_array
 from .embedding import build_edge_ol, candidate_meta, level1_ol
 from .graphdb import Graph
-from .level_step import dispatch_level
+from .level_step import dispatch_level, permute_stores
 from .mapreduce import MiningMesh, map_materialize, map_reduce_supports
 from .partition import make_partitions
 
@@ -265,9 +276,14 @@ class _LevelOutcome:
     keep: np.ndarray            # survivor candidate indices
     pol: torch.Tensor           # next-level OL store (compact survivors)
     pmask: torch.Tensor
+    src: torch.Tensor           # edge store (permuted when rebalanced)
+    dst: torch.Tensor
+    emask: torch.Tensor
     overflow: int
     max_embeddings: int         # M after any escalation
+    rebalanced: bool
     imbalance: float
+    perm: Optional[np.ndarray]  # applied partition permutation (or None)
     map_seconds: float
     escalations: int
     retried: bool = False       # level took a materialize-only retry
@@ -281,10 +297,12 @@ class _LevelOutcome:
 
 
 class Mirage:
-    """The miner.  ``device=None`` runs on the CUDA device and raises
-    when there is none; ``device="cpu"`` runs the plain PyTorch versions
-    of the kernels (the tests do).  ``mesh=None`` is the one-worker
-    mesh."""
+    """The miner.  ``device=None`` runs on the mesh's device, else on the
+    CUDA device, and raises when there is none; ``device="cpu"`` runs
+    the plain PyTorch versions of the kernels (the tests do).
+    ``mesh=None`` is the one-worker mesh; a multi-worker mesh
+    (``MiningMesh.from_process_group``) runs one worker per rank, every
+    rank calling ``fit`` on the same graphs and config."""
 
     def __init__(self, config: MirageConfig,
                  mesh: Optional[MiningMesh] = None,
@@ -294,6 +312,12 @@ class Mirage:
                 "pipeline='device_loop' and candgen='device' are not "
                 "ported yet (ROADMAP queue A item 11)")
         check_backend(config.backend)
+        self.mesh = mesh or MiningMesh.single_device()
+        if self.mesh.device is not None:
+            if device is not None and torch.device(device) != self.mesh.device:
+                raise ValueError(f"device {device} differs from the mesh's "
+                                 f"device {self.mesh.device}")
+            device = self.mesh.device
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -306,7 +330,6 @@ class Mirage:
             raise RuntimeError(f"device {self.device} requested but CUDA "
                                f"is not available")
         self.cfg = config
-        self.mesh = mesh or MiningMesh.single_device()
         self.backend: Backend = config.backend or default_backend(self.device)
         # per-run invariant auditor (§14); rebuilt by each fit()
         self.auditor: Optional[Auditor] = None
@@ -339,13 +362,8 @@ class Mirage:
         # peek the checkpoint first: the partition count is baked into
         # the saved OL store
         resume_state = resume_meta = None
-        if resume and cfg.checkpoint_dir and ckpt.latest_step(cfg.checkpoint_dir):
-            try:
-                resume_state, resume_meta = ckpt.load_step(cfg.checkpoint_dir)
-            except FileNotFoundError:
-                # every on-disk step failed integrity verification and
-                # was reaped — a fresh start is the only sound option
-                resume_state = resume_meta = None
+        if resume and cfg.checkpoint_dir:
+            resume_state, resume_meta = self._load_checkpoint()
 
         # ---- phase 1: partition (host) --------------------------------
         if resume_state is not None:
@@ -423,10 +441,16 @@ class Mirage:
             # re-bucket it into the CURRENT config's family
             pol, pmask = self._repad_saved(pol, pmask)
 
+        # this rank's block of the canonical partition order
+        blk = partition_block(n_parts, self.mesh.rank, self.mesh.n_workers)
         pol, pmask, src_d, dst_d, emask_d = (
-            torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            torch.from_numpy(np.ascontiguousarray(x[blk])).to(self.device)
             for x in (pol, pmask, src, dst, emask))
         del src, dst
+        # cumulative partition permutation from straggler rebalancing;
+        # checkpoints hold the store in CANONICAL order, so a resumed run
+        # (which rebuilds the edge store canonically) stays aligned
+        order = np.arange(n_parts)
 
         # per-level (n_parents, n_candidates, n_keep) history drives the
         # next level's compaction cap from the measured per-parent fanout
@@ -521,14 +545,17 @@ class Mirage:
                 break
 
             pol, pmask = out.pol, out.pmask
+            src_d, dst_d, emask_d = out.src, out.dst, out.emask
             levels.append([cands[i].code for i in out.keep])
             for i in out.keep:
                 supports[cands[i].code] = int(out.gsup[i])
+            if out.perm is not None:
+                order = order[out.perm]
             history.append((n_parents, C, len(out.keep)))
 
             stats.append(LevelStats(k + 1, C, len(out.keep), out.overflow,
                                     time.perf_counter() - t0,
-                                    out.map_seconds, False,
+                                    out.map_seconds, out.rebalanced,
                                     out.imbalance, out.escalations,
                                     out.candgen_seconds,
                                     survivor_cap=out.survivor_cap,
@@ -536,7 +563,7 @@ class Mirage:
 
             if cfg.checkpoint_dir:
                 self._save(cfg.checkpoint_dir, k + 1, levels, supports,
-                           pol, pmask, M, total_overflow)
+                           pol, pmask, M, total_overflow, order)
             # narrow this level's speculative superset to the surviving
             # parents — provably equal to generate_candidates(F_{k+1})
             cands = (filter_speculative(out.spec_cands, out.keep)
@@ -545,6 +572,31 @@ class Mirage:
 
         return DistMiningResult(levels, supports, stats, alphabet, minsup,
                                 total_overflow)
+
+    # ------------------------------------------------------------------
+    def _load_checkpoint(self):
+        """The newest intact checkpoint as ``(state, metadata)``, or
+        ``(None, None)``.  Rank 0 reads first (reaping any corrupt or
+        unfinished step it meets), then the other ranks read what it
+        left, so that every rank resumes from the same step."""
+        root = self.cfg.checkpoint_dir
+
+        def read():
+            if not ckpt.latest_step(root):
+                return None, None
+            try:
+                return ckpt.load_step(root)
+            except FileNotFoundError:
+                # every on-disk step failed integrity verification and
+                # was reaped — a fresh start is the only sound option
+                return None, None
+
+        if self.mesh.rank == 0:
+            found = read()
+        self.mesh.barrier()
+        if self.mesh.rank != 0:
+            found = read()
+        return found
 
     # ------------------------------------------------------------------
     def _repad_saved(self, pol, pmask):
@@ -638,15 +690,22 @@ class Mirage:
     def _memory_cap(self, S: int, pol: torch.Tensor, max_embeddings: int,
                     child_width: Optional[int]) -> int:
         """The survivor cap, clamped by :func:`memory_survivor_cap` to
-        what the device holds now (no clamp on the CPU)."""
+        what the device holds now (no clamp on the CPU).  The ranks that
+        share a device split what it has free, and the ranks take the
+        smallest clamp of any of them: a cap that differed between ranks
+        would give their level programs different shapes."""
         free = self._free_device_bytes()
         if free is None:
             return S
         NP, _, G, _, K = pol.shape
         width = child_width if child_width is not None else K + 1
-        return memory_survivor_cap(
-            S, NP * G * max_embeddings * (4 * width + 1), free,
-            self._buckets())
+        S = memory_survivor_cap(
+            S, NP * G * max_embeddings * (4 * width + 1),
+            free // self.mesh.ranks_per_device, self._buckets())
+        if self.mesh.n_workers > 1:
+            agreed = torch.tensor([S], dtype=torch.int64, device=self.device)
+            S = int(self.mesh.all_reduce(agreed, dist.ReduceOp.MIN))
+        return S
 
     # ------------------------------------------------------------------
     def _level_single_sync(self, meta_p, meta, C, pol, pmask, src, dst,
@@ -670,7 +729,9 @@ class Mirage:
         Exceptional paths re-use the still-valid pass-1 supports and
         re-materialize from the preserved parents: a survivor-cap miss
         re-materializes the full survivor set, and the escalation valve
-        re-materializes at a doubled M."""
+        re-materializes at a doubled M.  When the wire reports a
+        rebalance, the child and edge stores move to their new ranks
+        (``permute_stores``)."""
         cfg = self.cfg
         bk = self._buckets()
         Cp = meta_p.shape[0]
@@ -680,7 +741,8 @@ class Mirage:
         pending = dispatch_level(
             self.mesh, meta_p, C, pol, pmask, src, dst, emask,
             minsup=minsup, backend=self.backend, reduce=cfg.reduce,
-            max_embeddings=M, survivor_cap=S, child_width=child_width,
+            max_embeddings=M, survivor_cap=S, rebalance=cfg.rebalance,
+            threshold=cfg.rebalance_threshold, child_width=child_width,
             sched_floor=bk.c_floor if bk is not None else None,
             level=level, sharded=self._sharded_wire(),
             packed=packed, tile_c=tile_c, psup=psup, n_graphs=n_graphs)
@@ -734,21 +796,27 @@ class Mirage:
                 new_pol, new_pmask = _pad_store(
                     new_pol, new_pmask, p_to=bk.survivors(len(keep), Cp))
 
+        rebalanced = w.rebalanced and n > 0
+        if rebalanced:
+            new_pol, new_pmask, src, dst, emask = permute_stores(
+                self.mesh, w.perm, new_pol, new_pmask, src, dst, emask)
+
         return _LevelOutcome(
-            gsup=w.gsup, keep=keep, pol=new_pol, pmask=new_pmask,
-            overflow=overflow, max_embeddings=M, imbalance=w.imbalance,
-            map_seconds=map_secs, escalations=escalations,
-            retried=retried, survivor_cap=S, spec_cands=spec_cands,
-            candgen_seconds=cand_secs, audit=int(w.audit))
+            gsup=w.gsup, keep=keep, pol=new_pol, pmask=new_pmask, src=src,
+            dst=dst, emask=emask, overflow=overflow, max_embeddings=M,
+            rebalanced=rebalanced, imbalance=w.imbalance,
+            perm=w.perm if rebalanced else None, map_seconds=map_secs,
+            escalations=escalations, retried=retried, survivor_cap=S,
+            spec_cands=spec_cands, candgen_seconds=cand_secs,
+            audit=int(w.audit))
 
     # ------------------------------------------------------------------
     def _level_legacy(self, meta_p, meta, C, pol, pmask, src, dst, emask,
                       minsup, M, n_parts) -> _LevelOutcome:
         """The legacy pipeline: separate support and materialize programs
         with host round trips between them (the keep list, the escalation
-        loop).  Kept as the differential oracle.  The straggler rebalance
-        permutes the partitions across workers and only runs when there
-        is more than one, so never at W=1; the imbalance is reported."""
+        loop, the straggler rebalance decided on the host from the
+        gathered embed counts).  Kept as the differential oracle."""
         cfg = self.cfg
         t_map = time.perf_counter()
         gsup, verdict, emb_pp = map_reduce_supports(
@@ -759,20 +827,29 @@ class Mirage:
         keep = np.flatnonzero(verdict[:C] != 0)
         if len(keep) == 0:
             return _LevelOutcome(
-                gsup=gsup[:C], keep=keep, pol=pol, pmask=pmask, overflow=0,
-                max_embeddings=M, imbalance=1.0, map_seconds=map_secs,
-                escalations=0)
+                gsup=gsup[:C], keep=keep, pol=pol, pmask=pmask, src=src,
+                dst=dst, emask=emask, overflow=0, max_embeddings=M,
+                rebalanced=False, imbalance=1.0, perm=None,
+                map_seconds=map_secs, escalations=0)
         new_pol, new_pmask, overflow, M, escalations = (
             self._materialize_exact(meta[keep], pol, pmask, src, dst,
                                     emask, M))
+
+        # ---- straggler rebalance (cost signal: embed counts) -----------
         cost = emb_pp.reshape(n_parts, -1).sum(-1).astype(np.float64)
-        per_worker = cost.reshape(self.mesh.n_workers, -1).sum(-1)
-        mean = per_worker.mean()
-        imbal = float(per_worker.max() / mean) if mean > 0 else 1.0
+        W = self.mesh.n_workers
+        imbal = _imbalance(cost, W)
+        perm = None
+        if cfg.rebalance and W > 1 and imbal > cfg.rebalance_threshold:
+            perm = _lpt_order(cost, W)
+            new_pol, new_pmask, src, dst, emask = permute_stores(
+                self.mesh, perm, new_pol, new_pmask, src, dst, emask)
         return _LevelOutcome(
             gsup=gsup[:C], keep=keep, pol=new_pol, pmask=new_pmask,
-            overflow=overflow, max_embeddings=M, imbalance=imbal,
-            map_seconds=map_secs, escalations=escalations)
+            src=src, dst=dst, emask=emask, overflow=overflow,
+            max_embeddings=M, rebalanced=perm is not None,
+            imbalance=imbal, perm=perm, map_seconds=map_secs,
+            escalations=escalations)
 
     # ------------------------------------------------------------------
     def _materialize_exact(self, keep_meta, pol, pmask, src, dst, emask, M,
@@ -783,7 +860,7 @@ class Mirage:
         escalations = 0
         while True:
             new_pol, new_pmask, overflow = map_materialize(
-                keep_meta, pol, pmask, src, dst, emask,
+                self.mesh, keep_meta, pol, pmask, src, dst, emask,
                 max_embeddings=M, out_width=out_width)
             if (overflow == 0 or not cfg.escalate_on_overflow
                     or M >= cfg.max_embeddings_limit):
@@ -792,33 +869,60 @@ class Mirage:
             M = min(M * 2, cfg.max_embeddings_limit)
             escalations += 1
 
-    def _save(self, root, level, levels, supports, pol, pmask, M, overflow):
+    def _save(self, root, level, levels, supports, pol, pmask, M, overflow,
+              order):
         """Checkpoint in the JAX package's format: the CANONICAL store
-        (bucket padding stripped — pattern axis to the true survivor
-        count, vertex axis to the widest real pattern), so a resume under
-        other bucket floors, or in the other package, re-pads into its
-        own family."""
+        (the cumulative rebalance permutation ``order`` inverted; bucket
+        padding stripped — pattern axis to the true survivor count,
+        vertex axis to the widest real pattern), so a resume on another
+        worker count, under other bucket floors, or in the other package
+        re-lays it out.  The ranks' blocks are gathered to rank 0, which
+        alone writes; the other ranks wait for it."""
         max_edges = max(len(c) for l in levels for c in l)
         n_real = max(len(levels[-1]), 1)
-        pol_np = pol[:, :n_real].cpu().numpy()
-        pmask_np = pmask[:, :n_real].cpu().numpy()
-        if self._buckets() is not None:
-            kw = 1 + max(max(i, j) for c in levels[-1]
-                         for (i, j, _a, _e, _b) in c)
-            pol_np = pol_np[..., :kw]
-        state = {
-            "levels": [[code_to_array(c, max_edges) for c in l]
-                       for l in levels],
-            "support_codes": [code_to_array(c, max_edges) for c in supports],
-            "support_vals": np.asarray(list(supports.values()), np.int64),
-            "pol": pol_np,
-            "pmask": pmask_np,
-            "max_embeddings": M,
-            "total_overflow": overflow,
-        }
-        ckpt.save_step(root, level, state,
-                       metadata={"kind": "mirage-mining",
-                                 **self._ckpt_meta})
+        pol_np = self._gather_store(pol[:, :n_real])
+        pmask_np = self._gather_store(pmask[:, :n_real])
+        if self.mesh.rank == 0:
+            inv = np.empty_like(order)
+            inv[order] = np.arange(len(order))
+            pol_np, pmask_np = pol_np[inv], pmask_np[inv]
+            if self._buckets() is not None:
+                kw = 1 + max(max(i, j) for c in levels[-1]
+                             for (i, j, _a, _e, _b) in c)
+                pol_np = pol_np[..., :kw]
+            state = {
+                "levels": [[code_to_array(c, max_edges) for c in l]
+                           for l in levels],
+                "support_codes": [code_to_array(c, max_edges)
+                                  for c in supports],
+                "support_vals": np.asarray(list(supports.values()),
+                                           np.int64),
+                "pol": pol_np,
+                "pmask": pmask_np,
+                "max_embeddings": M,
+                "total_overflow": overflow,
+            }
+            ckpt.save_step(root, level, state,
+                           metadata={"kind": "mirage-mining",
+                                     **self._ckpt_meta})
+        self.mesh.barrier()
+
+    def _gather_store(self, x: torch.Tensor) -> Optional[np.ndarray]:
+        """The whole store (NP, ...) in the live partition order on rank 0
+        (None elsewhere), gathered one local partition at a time so that
+        no rank holds more than W partitions of it on the device."""
+        W, PP = self.mesh.n_workers, x.shape[0]
+        if self.mesh.group is None:
+            return x.cpu().numpy()
+        out = None
+        for i in range(PP):
+            parts = self.mesh.all_gather(x[i:i + 1].contiguous()).cpu()
+            if self.mesh.rank == 0:
+                if out is None:
+                    out = np.empty((W * PP, *x.shape[1:]),
+                                   parts.numpy().dtype)
+                out[i::PP] = parts.numpy()
+        return out
 
 
 def memory_survivor_cap(S: int, slot_bytes: int, free_bytes: int,
@@ -875,3 +979,29 @@ def _pad_f(a: np.ndarray, F: int, fill) -> np.ndarray:
         return a
     widths = [(0, 0)] * (a.ndim - 1) + [(0, pad)]
     return np.pad(a, widths, constant_values=fill)
+
+
+def _imbalance(cost: np.ndarray, w: int) -> float:
+    """max/mean of per-worker cost under the current blocked assignment."""
+    per_worker = cost.reshape(w, -1).sum(-1)
+    mean = per_worker.mean()
+    return float(per_worker.max() / mean) if mean > 0 else 1.0
+
+
+def _lpt_order(cost: np.ndarray, w: int) -> np.ndarray:
+    """Re-pack partitions into w balanced blocks (LPT), then emit the
+    permutation that lays blocks contiguously (matching the blocked
+    partition→worker rule); the host twin of
+    ``level_step.lpt_permutation``."""
+    np_total = len(cost)
+    per = np_total // w
+    buckets: list[list[int]] = [[] for _ in range(w)]
+    load = np.zeros(w)
+    for i in np.argsort(-cost):
+        # lightest bucket with room
+        for b in np.argsort(load):
+            if len(buckets[b]) < per:
+                buckets[b].append(int(i))
+                load[b] += cost[i]
+                break
+    return np.asarray([i for b in buckets for i in b], np.int32)

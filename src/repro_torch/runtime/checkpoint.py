@@ -24,6 +24,12 @@ Design goals, per the 1000+-node brief:
     newest checkpoint that *passes digest verification*, reaping any
     corrupt newer ones.
 
+With several workers the store stays single-writer: the miner gathers
+the ranks' blocks of the canonical store to rank 0, which alone calls
+``save_step``, and the other ranks wait for it at a barrier; on resume
+rank 0 reads first (reaping what it must) and every other rank then
+reads the step it left (``core/mining.py``).
+
 This is the analogue of MIRAGE's between-iteration HDFS writes: the
 reducer output of level k (here: the level-k OL store + frequent codes)
 is durably on disk — and provably intact — before level k+1 starts, so

@@ -17,13 +17,17 @@ is present, or when the port is not next to it.  Phases:
                stub/to outside [0, K), unsorted tiles, verdict words past
                G, a candidate table padded with copies of one row, runs
                of equal rows, offset data pointers, more rows than the
-               reduction's grid), exact, with outputs that start as
-               garbage; the two-launch join's zeros for a run of rows
-               outside the stores;
+               reduction's grid, 1,791 triples — the last count whose
+               span table fits in shared memory — and 1,792 and 1,914
+               past it), exact, with outputs that start as garbage; the
+               two-launch join's zeros for a run of rows outside the
+               stores;
   3. small   — ``Mirage.fit`` on the card against the port's own host
                oracle ``mine_host`` on two small databases, exact, with
                the fused backend (packed and dense), the two-launch
-               backend "pallas", and the legacy pipeline;
+               backend "pallas", and the legacy pipeline; and, with the
+               fused backend, a 400-graph DB of 1,914 directed edge
+               triples, past the span table;
   4. packed  — the main path: one PubChem anticancer screen's scale
                (40,000 molecule-like graphs, ~28 edges) at minsup 15%,
                8 partitions, patterns up to 4 edges, every other
@@ -47,11 +51,20 @@ is present, or when the port is not next to it.  Phases:
                4's 40,000-graph run at W=2, 4 partitions a rank; every
                rank against ``mine_host`` (phase 4's result for 40K),
                each rank's launches and wire fetches per level printed;
+               Then a worker loss at level 3 on two ranks: rank 1
+               retires, rank 0 resumes alone from the level-2 checkpoint;
   9. nccl    — a one-rank NCCL group (``MiningMesh.from_process_group``)
                mining the small DBs with the fused and two-launch
                backends: the level program's collectives on the
                production backend, every dispatch under sync debug mode
-               'error', one wire fetch per level.
+               'error', one wire fetch per level;
+ 10. supervised — phase 4's database and config under
+               ``MiningSupervisor`` with the schedule
+               ``kernel_fault@3;wire_bitflip@4`` and one kernel fault per
+               rung: level 2 runs the packed kernel, the fault at level
+               3 descends the ladder to the two-launch kernels, which
+               mine levels 2-4 afresh, level 4's flipped wire heals with
+               one re-fetch, and the result equals phase 4's oracle.
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -60,7 +73,7 @@ host memory.
 
 Every main run counts kernel launches (set to 0 just before the run,
 read just after) and checks the frequent set against ``mine_host``
-(phases 6 and 7 against phase 4's oracle result); the two main
+(phases 6, 7 and 10 against phase 4's oracle result); the two main
 databases' oracles run in processes of their own, beside the card's
 work.  The single-sync runs
 (4, 5, 6) run every level dispatch under
@@ -451,6 +464,13 @@ def phase_parity_small():
          32),
         # G = 130 at the 128-graph tile: 8 verdict words, 3 past G
         (dict(C=9, G=130, M=6, F=6), 4, 16),
+        # the triple span table's edge: the last T it holds, then each
+        # warp's own spans (T = 1,914 is the seeded DB of phase 3)
+        (dict(C=60, G=70, M=6, K=3, T=1791, F=4, masks="prefix"), 4, 96),
+        (dict(C=60, G=70, M=6, K=3, T=1792, F=4, masks="prefix"), 4, 96),
+        (dict(C=60, G=70, M=6, K=3, T=1914, F=4, masks="prefix", PP=2), 4,
+         96),
+        (dict(C=60, G=70, M=6, K=3, T=1914, F=4, masks="prefix"), 1, 64),
     ]
     worst = 0
     for i, (shape, tc, rows) in enumerate(cases):
@@ -462,7 +482,7 @@ def phase_parity_small():
         sched = schedule_candidates(meta, tc)
         if rows:
             sched = pad_schedule(sched, rows_to=rows, inv_to=len(meta) + 3)
-        if i == 12:
+        if i == 12 or shape.get("T", 0) > 1791:
             sched = unsort(sched, rng)
         cpu = [torch.from_numpy(np.ascontiguousarray(x)) for x in
                (sched.meta, sched.tiles, pol, pmask, src, dst, emask)]
@@ -496,6 +516,9 @@ def phase_parity_small():
         (dict(C=12, G=37), "padded-tail"),            # bucket padding rows
         (dict(C=14, G=29, PP=2), "runs"),             # runs of equal rows
         (dict(C=70, G=300, PP=2), "padded-tail"),
+        (dict(C=60, G=70, M=6, K=3, T=1791, F=4, masks="prefix"), None),
+        (dict(C=60, G=70, M=6, K=3, T=1914, F=4, masks="prefix", PP=2),
+         None),
     ]
     worst = 0
     for i, (shape, force) in enumerate(two):
@@ -603,6 +626,42 @@ def phase_small():
             f"packed and dense, two-launch, legacy two-launch)")
 
 
+def phase_many_triples(want) -> None:
+    """Phase 3 (c): the seeded DB of ROADMAP queue C, C2, whose 1,914
+    directed edge triples are past the join kernels' span table, mined
+    with the fused backend against ``mine_host`` (``want``: the future of
+    the oracle process computing it beside the card's work)."""
+    import torch
+    from repro_torch.core.mining import Mirage, MirageConfig
+    from repro_torch.core.partition import make_partitions
+    from repro_torch.kernels import build
+    graphs = make_graphs(C2_DB)
+    part = make_partitions(graphs, C2_MINSUP, 8)
+    T = len({t for c in part.alphabet.canonical()
+             for t in (c, (c[2], c[1], c[0]))})
+    threads, smem = build.join_geometry(1, T)
+    check(smem == build.JOIN_WARPS * build.JOIN_LAZY_WARP_BYTES,
+          f"T={T}: the join kernels should run without the span table")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = Mirage(MirageConfig(minsup=C2_MINSUP, n_partitions=8,
+                              max_size=C2_MAX_SIZE,
+                              backend="fused")).fit(graphs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches["fused_level_packed"] == len(res.stats),
+          f"phase 3 C2 DB: launches {launches} over {len(res.stats)} levels")
+    check(sorted(res.supports.items()) == want.result(),
+          "phase 3 C2 DB: the card's frequent set differs from mine_host")
+    say(f"phase 3 many triples: random_db(400, n_vlabels=40) minsup="
+        f"{C2_MINSUP} max_size={C2_MAX_SIZE}: T={T} directed triples, "
+        f"join geometry {threads} threads x {smem} shared bytes (no span "
+        f"table); fit {secs:.2f}s, frequent per level {res.counts()}, "
+        f"candidates per level {[st.n_candidates for st in res.stats]}, "
+        f"kernel launches {launches}; equal to mine_host")
+
+
 def make_db(label: str, n_graphs: int, seed: int):
     import numpy as np
     from repro_torch.core.graphdb import pubchem_like_db
@@ -618,18 +677,23 @@ def make_db(label: str, n_graphs: int, seed: int):
 @contextlib.contextmanager
 def level_guard(sync_debug: bool):
     """Count the single-sync level dispatches and each level's wire
-    fetches (yielded as ``{"dispatch": n, "fetch": {level: n}}``); with
-    ``sync_debug`` every dispatch runs under sync debug mode 'error', so
-    that a device→host read inside it raises."""
+    fetches, every device→host copy of the wire including re-fetches
+    (yielded as ``{"dispatch": n, "fetch": {level: n}, "log": [...]}``,
+    the log holding ("dispatch", level) and ("fetch", level) in order);
+    with ``sync_debug`` every dispatch runs under sync debug mode
+    'error', so that a device→host read inside it raises."""
     import torch
     import repro_torch.core.level_step as level_step
     import repro_torch.core.mining as mining
     orig_dispatch = mining.dispatch_level
-    orig_finish = level_step.PendingLevel.finish
-    counts = {"dispatch": 0, "fetch": {}}
+    orig_fetch = level_step._fetch_wire
+    orig_copy = level_step._copy_to_host
+    counts = {"dispatch": 0, "fetch": {}, "log": []}
+    fetching = [None]
 
     def guarded_dispatch(*args, **kw):
         counts["dispatch"] += 1
+        counts["log"].append(("dispatch", kw.get("level")))
         if not sync_debug:
             return orig_dispatch(*args, **kw)
         torch.cuda.synchronize()
@@ -639,17 +703,25 @@ def level_guard(sync_debug: bool):
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
-    def counted_finish(self):
-        counts["fetch"][self.level] = counts["fetch"].get(self.level, 0) + 1
-        return orig_finish(self)
+    def counted_fetch(wire_d, level, *args, **kw):
+        fetching[0] = level
+        return orig_fetch(wire_d, level, *args, **kw)
+
+    def counted_copy(wire_d):
+        level = fetching[0]
+        counts["fetch"][level] = counts["fetch"].get(level, 0) + 1
+        counts["log"].append(("fetch", level))
+        return orig_copy(wire_d)
 
     mining.dispatch_level = guarded_dispatch
-    level_step.PendingLevel.finish = counted_finish
+    level_step._fetch_wire = counted_fetch
+    level_step._copy_to_host = counted_copy
     try:
         yield counts
     finally:
         mining.dispatch_level = orig_dispatch
-        level_step.PendingLevel.finish = orig_finish
+        level_step._fetch_wire = orig_fetch
+        level_step._copy_to_host = orig_copy
 
 
 def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
@@ -874,6 +946,16 @@ MAIN40_DB = ("pubchem_like_db", (("n_graphs", 40_000), ("seed", 0),
                                  ("avg_edges", 28)))
 MAIN80_DB = ("pubchem_like_db", (("n_graphs", 80_000), ("seed", 1),
                                  ("avg_edges", 28)))
+# ROADMAP queue C, C2: 1,914 directed edge triples at minsup 2
+C2_DB = ("random_db", (("n_graphs", 400), ("n_vertices", 8),
+                       ("extra_edge_prob", 0.3), ("n_vlabels", 40),
+                       ("n_elabels", 2), ("seed", 0)))
+C2_MINSUP, C2_MAX_SIZE = 2, 3
+# tests/test_chaos.py's DB (levels of 3, 5, 10 and 5 frequent patterns)
+CHAOS_DB = ("random_db", (("n_graphs", 10), ("seed", 5), ("n_vertices", 9),
+                          ("n_vlabels", 2), ("n_elabels", 1)))
+# phase 10's schedule: a kernel fault at level 3, a flipped wire bit at 4
+SUPERVISED_SCHEDULE = "kernel_fault@3;wire_bitflip@4"
 
 
 def main_minsup(n_graphs: int) -> int:
@@ -932,6 +1014,43 @@ def mine_on_rank(mesh, graphs, cfg_kw: dict, sync_debug: bool) -> dict:
                        st.audit) for st in res.stats]}
 
 
+def supervise_on_rank(mesh, graphs, cfg_kw: dict) -> dict:
+    """One supervised run on this rank under ``cfg_kw["schedule"]``
+    (every rank installs the same) and, with ``cfg_kw["deadlines"]``,
+    this rank's run deadline from that list (a partial result is then
+    returned); kernel launches counted from 0.  Returns the supervisor's
+    events, the mesh it ends on, and the result (None on a rank that
+    retired)."""
+    import repro_torch.core.mining as mining
+    from repro_torch.core.supervisor import MiningSupervisor, SupervisorConfig
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.watchdog import Watchdog
+    cfg_kw = dict(cfg_kw)
+    faults.install(faults.FaultSchedule.parse(cfg_kw.pop("schedule")))
+    deadlines = cfg_kw.pop("deadlines", None)
+    watchdog = (Watchdog(run_deadline_s=deadlines[mesh.rank])
+                if deadlines else None)
+    try:
+        with level_guard(sync_debug=False) as counts:
+            sup = MiningSupervisor(
+                mining.MirageConfig(**cfg_kw),
+                SupervisorConfig(on_exhausted="partial" if deadlines
+                                 else "raise"),
+                mesh=mesh, watchdog=watchdog)
+            reset_launch_counts()
+            res = sup.mine(graphs)
+            launches = launch_counts()
+    finally:
+        faults.clear()
+    return {"events": [(e.kind, e.action, e.level) for e in sup.events],
+            "workers": sup.mesh.n_workers, "launches": launches,
+            "log": counts["log"], "partial": isinstance(res,
+                                                        mining.PartialResult),
+            "supports": None if res is None else sorted(res.supports.items()),
+            "levels": (None if res is None or deadlines
+                       else [st.level for st in res.stats])}
+
+
 def rank_main(rank: int, world: int, backend: str, store: str, runs,
               out: str, group_timeout: float) -> None:
     """A worker rank: joins the process group (``backend`` over a
@@ -957,8 +1076,11 @@ def rank_main(rank: int, world: int, backend: str, store: str, runs,
         for name, db, cfg_kw in runs:
             if db not in graphs:
                 graphs[db] = make_graphs(db)
-            results[name] = mine_on_rank(mesh, graphs[db], cfg_kw,
-                                         sync_debug=backend == "nccl")
+            if "schedule" in cfg_kw:
+                results[name] = supervise_on_rank(mesh, graphs[db], cfg_kw)
+            else:
+                results[name] = mine_on_rank(mesh, graphs[db], cfg_kw,
+                                             sync_debug=backend == "nccl")
         with open(out, "wb") as f:
             pickle.dump(results, f)
         dist.barrier()
@@ -1081,6 +1203,137 @@ def phase_multiworker_small() -> None:
         f"({time.perf_counter() - t0:.1f}s)")
 
 
+def phase_multiworker_shrink() -> None:
+    """Phase 8 (d): supervised runs on two gloo ranks on the one card
+    (the chaos DB, 4 partitions, checkpoints).  A run deadline that only
+    rank 0 sees pass: the ranks agree on it in the survivor-cap
+    all-reduce before level 2's dispatch and both return the empty
+    prefix.  Then ``worker_loss@3``: both ranks raise before any
+    collective of level 3, rank 1 retires and rank 0 resumes alone from
+    the level-2 checkpoint, equal to ``mine_host``."""
+    import shutil
+    cks = [RANK_DIR / f"phase8-{name}-ck" for name in ("deadline", "shrink")]
+    for ck in cks:
+        shutil.rmtree(ck, ignore_errors=True)
+    want = oracle(CHAOS_DB, 5, 5)
+    t0 = time.perf_counter()
+    base = dict(minsup=5, n_partitions=4, max_size=5)
+    runs = [("deadline", CHAOS_DB, dict(base, checkpoint_dir=str(cks[0]),
+                                        schedule="",
+                                        deadlines=[1e-6, 3600.0])),
+            ("shrink", CHAOS_DB, dict(base, checkpoint_dir=str(cks[1]),
+                                      schedule="worker_loss@3"))]
+    results = spawn_ranks("phase8-shrink", 2, "gloo", runs, timeout=300)
+    for r, res in enumerate(results):
+        got = res["deadline"]
+        check(got["events"] == [("deadline", "partial", 2)]
+              and got["partial"] and got["supports"] == [],
+              f"phase 8 deadline rank {r}: events {got['events']}, partial "
+              f"{got['partial']}")
+    say(f"phase 8 deadline: a run deadline passed on rank 0 only; both "
+        f"ranks stopped before level 2's dispatch with "
+        f"{results[0]['deadline']['events']} and the empty prefix")
+    r0, r1 = (res["shrink"] for res in results)
+    check(r0["events"] == [("worker_loss", "shrink", 3)]
+          and r1["events"] == [("worker_loss", "retire", 3)],
+          f"phase 8 shrink: events {r0['events']} / {r1['events']}")
+    check(r1["supports"] is None, "phase 8 shrink: rank 1 did not retire")
+    check(r0["workers"] == 1 and r0["levels"][0] == 3,
+          f"phase 8 shrink: rank 0 on {r0['workers']} worker(s), levels "
+          f"{r0['levels']} (should resume at level 3)")
+    check(r0["supports"] == want,
+          "phase 8 shrink: rank 0's frequent set differs from mine_host")
+    check(r0["launches"]["fused_level_packed"] > 0,
+          f"phase 8 shrink: launches {r0['launches']}")
+    say(f"phase 8 shrink: worker_loss@3 at W=2 -> rank 0 {r0['events']}, "
+        f"rank 1 {r1['events']}; rank 0 resumed alone at level 3, levels "
+        f"{r0['levels']}, {len(want)} frequent equal to mine_host, kernel "
+        f"launches {r0['launches']} ({time.perf_counter() - t0:.1f}s)")
+
+
+def fetches_per_attempt(log) -> list[dict]:
+    """Each attempt's wire copies per level, from a level_guard log: an
+    attempt starts where a level is dispatched that is not past the last
+    one dispatched."""
+    attempts, last = [], None
+    for kind, level in log:
+        if kind == "dispatch":
+            if last is None or level <= last:
+                attempts.append({})
+            last = level
+        else:
+            attempts[-1][level] = attempts[-1].get(level, 0) + 1
+    return attempts
+
+
+def phase_supervised(graphs40, want40) -> None:
+    """Phase 10: phase 4's database and config under ``MiningSupervisor``
+    with ``SUPERVISED_SCHEDULE``, one kernel fault per rung and no
+    checkpoints (a retry restarts clean, still exact): the packed kernel
+    runs level 2, the kernel fault at level 3 descends to the two-launch
+    kernels, which mine levels 2-4 afresh, and level 4's flipped wire
+    heals with one re-fetch inside the run."""
+    import torch
+    import repro_torch.core.mining as mining
+    from repro_torch.core.supervisor import MiningSupervisor, SupervisorConfig
+    from repro_torch.runtime import faults
+    log_path = ROOT / "build" / "chip_smoke_faults.jsonl"
+    log_path.parent.mkdir(parents=True, exist_ok=True)
+    sup = MiningSupervisor(
+        mining.MirageConfig(**MAIN_CFG),
+        SupervisorConfig(fault_log_path=str(log_path), degrade_after=1))
+    faults.install(faults.FaultSchedule.parse(SUPERVISED_SCHEDULE))
+    try:
+        with level_guard(sync_debug=True) as counts:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            res = sup.mine(graphs40)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = launch_counts()
+        fired = [(e["kind"], e["level"]) for e in faults.injection_log()]
+    finally:
+        faults.clear()
+        faults.reset_log()
+    events = [(e.kind, e.action, e.level) for e in sup.events]
+    attempts = fetches_per_attempt(counts["log"])
+    lines = [json.loads(l) for l in log_path.read_text().splitlines()]
+    say(f"phase 10 supervised: schedule {SUPERVISED_SCHEDULE}, fit "
+        f"{secs:.2f}s over {len(attempts)} attempts, frequent per level "
+        f"{res.counts()}, kernel launches {launches}, injected {fired}")
+    for line in lines:
+        say(f"  fault log: {json.dumps(line)}")
+    for i, per_level in enumerate(attempts):
+        say(f"  attempt {i + 1}: wire copies per level {per_level}")
+    for st in res.stats:
+        say(f"  level {st.level}: candidates={st.n_candidates} "
+            f"frequent={st.n_frequent} {st.seconds:.3f}s (device+wire "
+            f"{st.map_seconds:.3f}s, hidden candgen "
+            f"{st.candgen_seconds:.3f}s) survivor_cap={st.survivor_cap} "
+            f"retried={st.retried} audit={st.audit}")
+    check(events == [("kernel", "degrade", 3)],
+          f"phase 10: supervisor events {events}")
+    check(fired == [("kernel_fault", 3), ("wire_bitflip", 4)],
+          f"phase 10: faults fired {fired}")
+    check(sup.last_miner.backend == "pallas",
+          f"phase 10: the last attempt ran backend {sup.last_miner.backend}")
+    check(launches == {"fused_level_packed": 1, "fused_level": 0,
+                       "embedding_join": 3, "support_count": 3},
+          f"phase 10: kernel launches {launches}")
+    check(attempts == [{2: 1}, {2: 1, 3: 1, 4: 2}],
+          f"phase 10: wire copies per attempt and level {attempts}")
+    check(all(st.audit == 0 for st in res.stats), "phase 10: audit words")
+    check(lines[-1]["summary"]["outcome"] == "complete"
+          and lines[-1]["summary"]["rung"] == 1,
+          f"phase 10: fault log summary {lines[-1]}")
+    check(sorted(res.supports.items()) == want40,
+          "phase 10: the frequent set differs from mine_host")
+    say("phase 10 supervised: B1 ran level 2, the kernel fault at level 3 "
+        "descended to 'pallas', B3 + B4 ran levels 2-4, level 4's wire "
+        "healed with 2 copies, every other level 1; equal to mine_host")
+
+
 def phase_multiworker_main(want40) -> None:
     """Phase 8 (c): the packed 40K main run at W=2, 4 partitions a rank,
     two gloo ranks sharing the one card."""
@@ -1158,9 +1411,11 @@ def main() -> int:
     pool = ProcessPoolExecutor(
         2, mp_context=multiprocessing.get_context("spawn"))
     try:
+        oracle_c2 = pool.submit(oracle, C2_DB, C2_MINSUP, C2_MAX_SIZE)
         card = phase_device()
         phase_parity_small()
         phase_small()
+        phase_many_triples(oracle_c2)
         oracle40 = pool.submit(oracle, MAIN40_DB, main_minsup(40_000),
                                MAIN_CFG["max_size"])
         oracle80 = pool.submit(oracle, MAIN80_DB, main_minsup(80_000),
@@ -1204,10 +1459,13 @@ def main() -> int:
         check(launches7["embedding_join"] > 0
               and launches7["support_count"] > 0,
               "the two-launch kernels never launched on the legacy path")
+        torch.cuda.empty_cache()
+        phase_supervised(graphs40, want40)
         del graphs40
         torch.cuda.empty_cache()
 
         phase_multiworker_small()
+        phase_multiworker_shrink()
         phase_multiworker_main(want40)
         phase_nccl()
     except SmokeFailure as exc:

@@ -1,4 +1,5 @@
-"""Continuous mining-invariant auditor, host half (DESIGN.md §14).
+"""Continuous mining-invariant auditor (DESIGN.md §14), the port of
+``repro.core.auditor``.
 
 **On device** (``level_step``): each level folds a bit-flag *audit word*
 into the checksummed wire — support monotonicity against the parent
@@ -12,22 +13,31 @@ cannot see — downward closure (a sampled survivor's rightmost-removed
 canonicality through the exact host checker (no device traffic, so the
 one-transfer-per-level contract holds) — plus host-side re-checks of
 the wire's verdict consistency.  Violations raise
-:class:`~repro_torch.runtime.errors.AuditError`.
+:class:`~repro_torch.runtime.errors.AuditError`, a *state*-class fault
+the supervisor heals by checkpoint replay.
 
-The offline whole-set gate (``audit_frequent_set``) and the cost model
-of ``repro.core.auditor`` belong to the supervisor slice.
+:func:`audit_frequent_set` re-verifies a whole frequent set (levels +
+supports) — the final gate a checkpoint passes before the supervisor
+cuts a :class:`~repro_torch.core.mining.PartialResult` at it.  It runs
+the exact host canonicality checker: the JAX package's bounded array
+machine (``device=True``) comes with the device-loop slice (ROADMAP
+queue A item 11).
+
+:func:`audit_overhead_model` is the deterministic cost proxy of the
+audit's share of a level's host↔device traffic.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..runtime.errors import AuditError
 from . import dfscode
 
-__all__ = ["Auditor", "describe_audit_word"]
+__all__ = ["Auditor", "audit_frequent_set", "audit_overhead_model",
+           "describe_audit_word"]
 
 _FLAG_NAMES = {1: "monotonicity", 2: "compaction", 4: "support-range",
                8: "survivor-count"}
@@ -36,6 +46,20 @@ _FLAG_NAMES = {1: "monotonicity", 2: "compaction", 4: "support-range",
 def describe_audit_word(word: int) -> str:
     names = [n for b, n in _FLAG_NAMES.items() if word & b]
     return "+".join(names) if names else "clean"
+
+
+def _is_canonical(code, device: bool = False) -> Optional[bool]:
+    """Spot-check one code's canonicality with the exact host checker
+    (no device traffic, so the one-transfer-per-level contract holds).
+    ``device=True`` asks for the JAX package's bounded array machine,
+    which is not ported yet."""
+    if device:
+        raise NotImplementedError(
+            "the device canonicality machine is not ported yet (ROADMAP "
+            "queue A item 11)")
+    if len(code) < 2:
+        return True
+    return bool(dfscode.is_canonical(tuple(code)))
 
 
 @dataclasses.dataclass
@@ -47,6 +71,9 @@ class Auditor:
     n_graphs: int = -1
     samples: int = 2
     seed: int = 0
+    # True routes canonicality spot checks through the device array
+    # machine, which comes with ROADMAP queue A item 11
+    device_canon: bool = False
     report: list = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
@@ -110,10 +137,115 @@ class Auditor:
                                f"{int(gsup[int(i)])} > parent support "
                                f"{int(psup)} (monotonicity)")
                 checked["closure"] += 1
-                if not dfscode.is_canonical(tuple(c.code)):
+                ok = _is_canonical(tuple(c.code), self.device_canon)
+                if ok is False:
                     raise AuditError(
                         level, f"candidate {int(i)}: survivor DFS code "
                                f"is not canonical")
-                checked["canonical"] += 1
+                if ok:
+                    checked["canonical"] += 1
         self.report.append({"level": level, "checked": checked,
                             "n_survivors": int(keep.size), "ok": True})
+
+    # -- whole-prefix (checkpoint cuts) --------------------------------
+
+    def check_levels(self, levels: Sequence[Sequence], supports: dict,
+                     *, start_level: int = 2) -> None:
+        """Audit decoded levels ``start_level..`` of a frequent-set
+        prefix: supports in range, monotone against the rightmost-
+        removed parent, parent present (downward closure), sampled
+        canonicality."""
+        for li in range(start_level - 1, len(levels)):
+            lvl = levels[li]
+            level_no = li + 1
+            prev = {tuple(c) for c in levels[li - 1]} if li else set()
+            n_canon = 0
+            codes = list(lvl)
+            n = min(self.samples, len(codes))
+            picks = (self._rng.choice(len(codes), size=n, replace=False)
+                     if codes else [])
+            picks = set(int(p) for p in np.atleast_1d(picks)) if n else set()
+            for ci, code in enumerate(codes):
+                code = tuple(code)
+                s = supports.get(code)
+                if s is None or s < self.minsup:
+                    raise AuditError(
+                        level_no, f"frequent code missing a support >= "
+                                  f"minsup (got {s})")
+                if self.n_graphs >= 0 and s > self.n_graphs:
+                    raise AuditError(
+                        level_no, f"support {s} exceeds the DB graph "
+                                  f"count {self.n_graphs}")
+                if li >= 1 and len(code) > 1:
+                    parent = tuple(code[:-1])
+                    if parent not in prev:
+                        raise AuditError(
+                            level_no, "rightmost-removed parent absent "
+                                      "from the previous level "
+                                      "(downward closure)")
+                    ps = supports.get(parent)
+                    if ps is not None and s > ps:
+                        raise AuditError(
+                            level_no, f"support {s} > parent support "
+                                      f"{ps} (monotonicity)")
+                if ci in picks:
+                    if _is_canonical(code, self.device_canon) is False:
+                        raise AuditError(
+                            level_no, "frequent DFS code is not "
+                                      "canonical")
+                    n_canon += 1
+            self.report.append({"level": level_no, "n_codes": len(codes),
+                                "checked": {"canonical": n_canon},
+                                "ok": True})
+
+
+def audit_frequent_set(levels: Sequence[Sequence], supports: dict,
+                       minsup: Optional[int], *, n_graphs: int = -1,
+                       samples: int = 2, seed: int = 0) -> list:
+    """Re-verify a whole frequent set (e.g. a loaded checkpoint) before
+    trusting it as a partial result.  Returns the audit report; raises
+    :class:`AuditError` on any violation.  ``minsup=None`` skips the
+    threshold check (checkpoints without a recorded minsup).  The JAX
+    package cross-validates canonicality on its device machine here;
+    the port runs the exact host checker."""
+    a = Auditor(minsup=0 if minsup is None else int(minsup),
+                n_graphs=n_graphs, samples=samples, seed=seed)
+    a.check_levels(levels, supports, start_level=1 if minsup else 2)
+    return a.report
+
+
+def audit_overhead_model(cp: int, n_partitions: int, n_workers: int, *,
+                         parents: Optional[int] = None,
+                         reduce: str = "reduce_scatter",
+                         sharded: Optional[bool] = None,
+                         packed: bool = False,
+                         samples: int = 2) -> dict:
+    """Deterministic model of the audit's share of a level's critical
+    path (bytes moved; the JAX package's model).
+
+    Audit costs per level: ONE extra int32 wire word per shard on the
+    host transfer, a summed pair of int32 violation counters in the
+    collective phase (sharded only), the PARENT-indexed support upload
+    (one int32 per parent slot, gathered on device through the meta
+    parent column; ``parents`` defaults to cp/4, the typical
+    rightmost-extension fanout), and ``samples`` host spot checks (off
+    the device critical path).  The path those bytes are charged
+    against is the level's full host<->device traffic: the modeled wire
+    cost (``level_step.wire_cost_model``) plus the (cp, 5) int32
+    candidate meta upload."""
+    from .level_step import wire_cost_model
+    base = wire_cost_model(cp, n_partitions, n_workers, reduce=reduce,
+                           sharded=sharded, packed=packed)
+    if sharded is None:
+        sharded = reduce == "reduce_scatter"
+    if parents is None:
+        parents = max(1, cp // 4)
+    shards = n_workers if sharded else 1
+    audit_host = shards * 4                 # one audit word per shard
+    audit_coll = (2 * 4 * (n_workers - 1) / n_workers) if sharded else 0.0
+    audit_upload = parents * 4              # parent-indexed psup upload
+    audit_bytes = audit_host + audit_coll + audit_upload
+    path_bytes = base["total_bytes"] + cp * 5 * 4
+    return {"audit_bytes": audit_bytes, "path_bytes": path_bytes,
+            "overhead": audit_bytes / max(path_bytes, 1.0),
+            "samples": samples, "parents": parents}

@@ -96,8 +96,11 @@ def build_edge_ol(
                 ti = tindex.get((la, int(el), lb))
                 if ti is not None:
                     occs[ti][gi].append((a, b))
-    F = max_occ or max((len(o) for row in occs for o in row), default=1)
-    F = max(F, 1)
+    # ``max_occ`` pads F and never truncates: a graph's every
+    # occurrence of a triple stays in its edge OL (the JAX package cuts
+    # the rows to ``max_occ`` and loses joins; ROADMAP queue C, C1)
+    F = max(max_occ or 1,
+            max((len(o) for row in occs for o in row), default=1))
     T = len(triples)
     src = np.full((T, G, F), PAD, np.int32)
     dst = np.full((T, G, F), PAD, np.int32)

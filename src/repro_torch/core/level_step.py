@@ -57,6 +57,7 @@ import torch.distributed as dist
 from ..kernels.fused_level import DEFAULT_TILE_C
 from ..kernels.ops import (device_local_supports, fused_level_supports,
                            fused_level_supports_packed, is_fused_backend)
+from ..runtime import faults
 from ..runtime.errors import WireIntegrityError
 from .buckets import bucket_size
 from .candgen import pad_schedule, schedule_candidates
@@ -447,11 +448,12 @@ def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
                 n_partitions: int, n_shards: int = 1, packed: bool = False,
                 cp: Optional[int] = None) -> np.ndarray:
     """The ONE device→host transfer of a clean level, integrity-checked.
-    A checksum mismatch triggers a bounded re-fetch from the device
-    buffer, then :class:`WireIntegrityError` — never silently wrong
-    supports."""
+    The chaos hook corrupts the host copy only, so the device buffer
+    stays pristine.  A checksum mismatch triggers a bounded re-fetch
+    from the device buffer, then :class:`WireIntegrityError` — never
+    silently wrong supports."""
     for _ in range(_WIRE_FETCH_ATTEMPTS):
-        host = wire_d.cpu().numpy()
+        host = faults.corrupt_wire(_copy_to_host(wire_d), level)
         body = reassemble_wire(host, n_partitions, n_shards,
                                packed=packed, cp=cp)
         if body is not None:
@@ -459,6 +461,12 @@ def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
     raise WireIntegrityError(
         f"level wire failed checksum {_WIRE_FETCH_ATTEMPTS}x"
         + (f" at level {level}" if level is not None else ""))
+
+
+def _copy_to_host(wire_d: torch.Tensor) -> np.ndarray:
+    """One device→host copy of the wire (on the CPU, a view of it: the
+    chaos hook flips bits in a copy)."""
+    return wire_d.cpu().numpy()
 
 
 def unpack_wire(wire: np.ndarray, C: int, Cp: int, n_partitions: int
@@ -556,6 +564,10 @@ def dispatch_level(
         raise ValueError(
             f"sharded wire needs the padded candidate count divisible by "
             f"the worker count, got Cp={Cp}, W={W}")
+    # chaos hook: a scheduled kernel fault fires here, before any work
+    # is queued, standing in for a launch or device-side error (the
+    # supervisor's degradation ladder answers it by swapping backends)
+    faults.maybe_raise("kernel", level)
     dev = pol.device
     P_axis, T_axis = pol.shape[1], src.shape[1]
     psup_p = np.full((P_axis,), -1, np.int32)

@@ -31,8 +31,18 @@ by default, no shape buckets and no device audit word — the JAX
 package's differential oracle, kept as it is.  ``MirageConfig`` keeps
 every field of the JAX package; the "device_loop" pipeline and device
 candgen are a later slice (ROADMAP queue A item 11) and raise
-``NotImplementedError``.  The watchdog, the fault hooks and the
-supervisor (queue A item 10) are not part of this slice.
+``NotImplementedError``.
+
+The robustness layer (DESIGN.md §10, §14) hooks the driver as in the
+JAX package: a worker-loss hook at each level start, survivor-cap
+storms, an injected stall after each dispatch (``runtime/faults.py``),
+and a ``Watchdog`` whose run deadline is checked at each loop head and
+whose phase deadline is armed around each level.  With several ranks
+the two clock-driven decisions are agreed over the ranks, so that no
+rank raises while a peer enters a collective: the run deadline rides
+the survivor-cap agreement (CUDA, single-sync) or one small all-reduce,
+and a fired stall's outcome is all-reduced.  ``core/supervisor.py``
+wraps ``mine`` (= ``fit``).
 
 Donation: PyTorch's eager ops never consume an input buffer, so the
 parent store stays valid for every retry and ``donate`` /
@@ -55,7 +65,10 @@ import torch.distributed as dist
 from ..kernels.ops import (Backend, check_backend, default_backend,
                            is_fused_backend)
 from ..runtime import checkpoint as ckpt
+from ..runtime import faults
+from ..runtime.errors import DeviceMemoryError
 from ..runtime.sharding import partition_block
+from ..runtime.watchdog import Watchdog
 from .auditor import Auditor
 from .buckets import BucketSpec, bucket_size, round_up_multiple
 from .candgen import (Candidate, EdgeAlphabet, filter_speculative,
@@ -68,7 +81,7 @@ from .mapreduce import MiningMesh, map_materialize, map_reduce_supports
 from .partition import make_partitions
 
 __all__ = ["MirageConfig", "LevelStats", "DistMiningResult", "Mirage",
-           "decode_saved_levels"]
+           "PartialResult", "decode_saved_levels", "memory_survivor_cap"]
 
 PIPELINES = ("single_sync", "device_loop", "legacy")
 CANDGENS = ("host", "device")
@@ -256,6 +269,37 @@ class DistMiningResult:
         return [len(l) for l in self.levels]
 
 
+@dataclasses.dataclass
+class PartialResult:
+    """A verified *prefix* of the full answer (anytime contract, §14).
+
+    MIRAGE's level-synchronous loop makes every completed level a
+    complete, valid answer to "all frequent subgraphs up to size k" —
+    so when the supervisor's retry budget or the run deadline is
+    exhausted, it cuts here: the frequent set through the newest intact
+    *audited* checkpoint, re-verified by
+    :func:`~repro_torch.core.auditor.audit_frequent_set` before it is
+    trusted.  ``complete`` is always False (the marker callers branch
+    on); ``audited`` is False only for the trivially valid empty prefix
+    (no surviving checkpoint)."""
+
+    levels: list[list[Code]]
+    supports: dict[Code, int]
+    minsup: Optional[int]
+    last_level: int                     # deepest audited complete level
+    reason: str                         # "deadline" | "budget-exhausted"
+    audited: bool
+    complete: bool = False
+    events: list[dict] = dataclasses.field(default_factory=list)
+
+    @property
+    def frequent(self) -> dict[Code, int]:
+        return self.supports
+
+    def counts(self) -> list[int]:
+        return [len(l) for l in self.levels]
+
+
 def decode_saved_levels(state: dict) -> tuple[list[list[Code]],
                                               dict[Code, int]]:
     """Decode a checkpoint's (levels, supports) arrays back into codes —
@@ -333,6 +377,7 @@ class Mirage:
         self.backend: Backend = config.backend or default_backend(self.device)
         # per-run invariant auditor (§14); rebuilt by each fit()
         self.auditor: Optional[Auditor] = None
+        self._watchdog: Optional[Watchdog] = None
         self._ckpt_meta: dict = {}
         if config.n_partitions % self.mesh.n_workers:
             raise ValueError(
@@ -355,8 +400,15 @@ class Mirage:
         return clamped
 
     # ------------------------------------------------------------------
-    def fit(self, graphs: Sequence[Graph], *,
-            resume: bool = False) -> DistMiningResult:
+    def fit(self, graphs: Sequence[Graph], *, resume: bool = False,
+            watchdog: Optional[Watchdog] = None,
+            deadline_s: Optional[float] = None) -> DistMiningResult:
+        """Mine ``graphs``.  ``watchdog`` (or one built from
+        ``deadline_s`` and the config's phase-deadline knobs) bounds the
+        run: its run deadline raises ``DeadlineExceeded`` at a loop head,
+        and a phase deadline is armed around every level.  With several
+        ranks, either every rank's watchdog has a run deadline or none
+        has: the ranks agree on its expiry in a collective."""
         cfg = self.cfg
 
         # peek the checkpoint first: the partition count is baked into
@@ -383,10 +435,25 @@ class Mirage:
         if not triples:
             return DistMiningResult([], {}, [], alphabet, minsup, 0)
 
+        # ---- §14 run plumbing: auditor + deadline watchdog -------------
         n_graphs = part.n_graphs
         self.auditor = (Auditor(minsup=minsup, n_graphs=n_graphs,
                                 samples=cfg.audit_samples)
                         if cfg.audit else None)
+        wd = watchdog
+        if wd is None and deadline_s is not None:
+            wd = Watchdog(deadline_s,
+                          phase_floor=cfg.level_deadline_floor,
+                          phase_slack=cfg.level_deadline_slack)
+        self._watchdog = wd
+        if wd is not None:
+            wd.start()
+        # the run deadline of a multi-rank single-sync run rides the
+        # survivor-cap agreement that precedes each dispatch wherever the
+        # device reports its free memory (CUDA)
+        fold_deadline = (self.mesh.n_workers > 1
+                         and cfg.pipeline != "legacy"
+                         and self._free_device_bytes() is not None)
         self._ckpt_meta = {"audited": bool(cfg.audit),
                            "minsup": int(minsup),
                            "n_graphs": int(n_graphs)}
@@ -474,6 +541,14 @@ class Mirage:
         prev_dev = 0.0
         while cfg.max_size is None or k < cfg.max_size:
             t0 = time.perf_counter()
+            expired = False
+            if wd is not None and wd.run_deadline_s is not None:
+                # cooperative run-deadline check at the loop head — the
+                # only place a DeadlineExceeded can safely unwind from
+                if fold_deadline:
+                    expired = wd.run_expired
+                else:
+                    self._check_deadline(k + 1, wd.run_expired)
             if cands is None:
                 cands = generate_candidates(levels[-1], alphabet)
                 if levels[-1]:
@@ -482,6 +557,8 @@ class Mirage:
                                  else 0.5 * (cand_rate + r))
             if not cands:
                 break
+            # chaos hook: a scheduled worker death at this level
+            faults.maybe_raise("level_start", k + 1)
             n_parents = len(levels[-1])
             meta = candidate_meta(cands, eol0)
             C = meta.shape[0]
@@ -497,11 +574,15 @@ class Mirage:
             if cfg.audit and cfg.pipeline != "legacy":
                 psup = np.array(
                     [supports.get(p, -1) for p in levels[-1]], np.int32)
+            if wd is not None:
+                # arm the phase deadline around the device work — the
+                # stretch a hang would otherwise block unobserved
+                wd.arm(level=k + 1)
 
             if cfg.pipeline == "legacy":
                 out = self._level_legacy(
                     meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
-                    minsup, M, n_parts)
+                    minsup, M, n_parts, level=k + 1)
             else:
                 # child patterns (size k+1) have at most k+2 vertices;
                 # the bucketed width reuses the parent store's while it
@@ -519,7 +600,11 @@ class Mirage:
                     packed=packed, tile_c=tile_pin, cands=cands,
                     alphabet=alphabet, cand_rate=cand_rate,
                     spec_window=max(prev_dev, cfg.overlap_spec_window),
-                    psup=psup, n_graphs=n_graphs)
+                    psup=psup, n_graphs=n_graphs, expired=expired)
+            if wd is not None:
+                # feed the level's wall-time into the EWMA the next
+                # phase deadline is derived from
+                wd.disarm(observe_s=time.perf_counter() - t0)
             if self.auditor is not None:
                 self.auditor.check_wire(k + 1, out.audit)
                 if len(out.keep):
@@ -572,6 +657,50 @@ class Mirage:
 
         return DistMiningResult(levels, supports, stats, alphabet, minsup,
                                 total_overflow)
+
+    # the paper's verb; the supervisor wraps this entrypoint
+    mine = fit
+
+    # ------------------------------------------------------------------
+    def _check_deadline(self, level: int, expired: bool) -> None:
+        """Raise ``DeadlineExceeded`` when the run deadline has passed —
+        on one rank, its own reading; with several, the ranks agree with
+        one small all-reduce (any expired rank stops them all), so every
+        rank raises at the same loop head."""
+        if self.mesh.n_workers > 1:
+            flag = torch.tensor([int(expired)], dtype=torch.int64,
+                                device=self.device)
+            expired = bool(int(self.mesh.all_reduce(flag,
+                                                    dist.ReduceOp.MAX)))
+        if expired:
+            raise self._deadline_error(level)
+
+    def _deadline_error(self, level: int) -> faults.DeadlineExceeded:
+        wd = self._watchdog
+        return faults.DeadlineExceeded(level, wd.elapsed(),
+                                       float(wd.run_deadline_s))
+
+    def _stall_hook(self, level: Optional[int]) -> None:
+        """The chaos hook of an injected stall while the level's device
+        work is in flight; the watchdog's armed phase deadline is what
+        bounds it.  A stall fires on every rank at once, but whether the
+        watchdog caught it is a clock reading: the ranks that stalled
+        agree on it with one all-reduce, so that they all raise
+        ``HangTimeout`` or all go on.  A level with no stall pays
+        nothing."""
+        err = None
+        try:
+            fired = faults.maybe_hang("dispatch", level, self._watchdog)
+        except faults.HangTimeout as exc:
+            fired, err = True, exc
+        if fired and self.mesh.n_workers > 1:
+            flag = torch.tensor([int(err is not None)], dtype=torch.int64,
+                                device=self.device)
+            if int(self.mesh.all_reduce(flag, dist.ReduceOp.MAX)) and (
+                    err is None):
+                err = faults.HangTimeout(level, 0.0)
+        if err is not None:
+            raise err
 
     # ------------------------------------------------------------------
     def _load_checkpoint(self):
@@ -688,12 +817,16 @@ class Mirage:
                        - torch.cuda.memory_allocated(self.device))
 
     def _memory_cap(self, S: int, pol: torch.Tensor, max_embeddings: int,
-                    child_width: Optional[int]) -> int:
+                    child_width: Optional[int], *, level: int = -1,
+                    expired: bool = False) -> int:
         """The survivor cap, clamped by :func:`memory_survivor_cap` to
         what the device holds now (no clamp on the CPU).  The ranks that
         share a device split what it has free, and the ranks take the
         smallest clamp of any of them: a cap that differed between ranks
-        would give their level programs different shapes."""
+        would give their level programs different shapes.  ``expired``
+        (this rank's run-deadline reading) rides the same all-reduce:
+        when any rank's deadline has passed, every rank raises
+        ``DeadlineExceeded`` here, before the dispatch."""
         free = self._free_device_bytes()
         if free is None:
             return S
@@ -703,9 +836,21 @@ class Mirage:
             S, NP * G * max_embeddings * (4 * width + 1),
             free // self.mesh.ranks_per_device, self._buckets())
         if self.mesh.n_workers > 1:
-            agreed = torch.tensor([S], dtype=torch.int64, device=self.device)
-            S = int(self.mesh.all_reduce(agreed, dist.ReduceOp.MIN))
+            agreed = torch.tensor([S, int(not expired)], dtype=torch.int64,
+                                  device=self.device)
+            S, live = self.mesh.all_reduce(agreed,
+                                           dist.ReduceOp.MIN).tolist()
+            if not live:
+                raise self._deadline_error(level)
         return S
+
+    def _retry_free_bytes(self) -> Optional[int]:
+        """Bytes this rank's share of the device has free for the store
+        of an exact retry, read after the discarded store was released;
+        None on the CPU, where stores take host memory."""
+        if self.device.type != "cuda":
+            return None
+        return self._free_device_bytes() // self.mesh.ranks_per_device
 
     # ------------------------------------------------------------------
     def _level_single_sync(self, meta_p, meta, C, pol, pmask, src, dst,
@@ -719,7 +864,8 @@ class Mirage:
                            packed: bool = False,
                            tile_c: Optional[int] = None,
                            psup: Optional[np.ndarray] = None,
-                           n_graphs: int = -1
+                           n_graphs: int = -1,
+                           expired: bool = False
                            ) -> _LevelOutcome:
         """One level: the device work is queued without a sync, the host
         speculates the next level's candidates while it runs (when the
@@ -735,8 +881,12 @@ class Mirage:
         cfg = self.cfg
         bk = self._buckets()
         Cp = meta_p.shape[0]
-        S = self._memory_cap(self._survivor_cap(C, Cp, history), pol, M,
-                             child_width)
+        S = self._survivor_cap(C, Cp, history)
+        # chaos hook: a cap-miss storm forces a pathological cap, driving
+        # every hit level through the materialize-only retry path
+        S = faults.override_cap(S, level)
+        S = self._memory_cap(S, pol, M, child_width, level=level,
+                             expired=expired)
         t_map = time.perf_counter()
         pending = dispatch_level(
             self.mesh, meta_p, C, pol, pmask, src, dst, emask,
@@ -746,6 +896,7 @@ class Mirage:
             sched_floor=bk.c_floor if bk is not None else None,
             level=level, sharded=self._sharded_wire(),
             packed=packed, tile_c=tile_c, psup=psup, n_graphs=n_graphs)
+        self._stall_hook(level)
         # the overlap window: the device work is in flight, the host is
         # free — speculate the next level's candidates now
         spec_cands = None
@@ -788,7 +939,7 @@ class Mirage:
                 escalations += 1
             new_pol, new_pmask, overflow, M, esc = self._materialize_exact(
                 meta[keep], pol, pmask, src, dst, emask, M,
-                out_width=child_width)
+                out_width=child_width, level=level)
             escalations += esc
             if bk is not None:
                 # re-bucket the retried store so the next level stays in
@@ -812,7 +963,8 @@ class Mirage:
 
     # ------------------------------------------------------------------
     def _level_legacy(self, meta_p, meta, C, pol, pmask, src, dst, emask,
-                      minsup, M, n_parts) -> _LevelOutcome:
+                      minsup, M, n_parts, *,
+                      level: Optional[int] = None) -> _LevelOutcome:
         """The legacy pipeline: separate support and materialize programs
         with host round trips between them (the keep list, the escalation
         loop, the straggler rebalance decided on the host from the
@@ -822,6 +974,7 @@ class Mirage:
         gsup, verdict, emb_pp = map_reduce_supports(
             self.mesh, meta_p, pol, pmask, src, dst, emask, minsup=minsup,
             backend=self.backend, reduce=cfg.reduce)
+        self._stall_hook(level)
         map_secs = time.perf_counter() - t_map
 
         keep = np.flatnonzero(verdict[:C] != 0)
@@ -833,7 +986,7 @@ class Mirage:
                 map_seconds=map_secs, escalations=0)
         new_pol, new_pmask, overflow, M, escalations = (
             self._materialize_exact(meta[keep], pol, pmask, src, dst,
-                                    emask, M))
+                                    emask, M, level=level))
 
         # ---- straggler rebalance (cost signal: embed counts) -----------
         cost = emb_pp.reshape(n_parts, -1).sum(-1).astype(np.float64)
@@ -853,12 +1006,34 @@ class Mirage:
 
     # ------------------------------------------------------------------
     def _materialize_exact(self, keep_meta, pol, pmask, src, dst, emask, M,
-                           out_width: Optional[int] = None):
+                           out_width: Optional[int] = None, *,
+                           level: Optional[int] = None):
         """Materialize survivors; escalate M until no overflow (exactness
-        valve — keeps device supports == paper semantics)."""
+        valve — keeps device supports == paper semantics).  Before each
+        store is built, its bytes are held against the free device
+        memory: a store that cannot fit raises ``DeviceMemoryError``
+        before anything is allocated, not CUDA's out-of-memory error
+        midway.  With several ranks the ranks agree on it (any rank short
+        of memory stops them all), so that no rank is left waiting in
+        the materialization's collective."""
         cfg = self.cfg
         escalations = 0
+        NP, _, G, _, K = pol.shape
+        width = out_width if out_width is not None else K + 1
+        n = int(keep_meta.shape[0])
         while True:
+            free = self._retry_free_bytes()
+            need = NP * n * G * M * (4 * width + 1)
+            if free is not None:
+                short = need > free
+                if self.mesh.n_workers > 1:
+                    flag = torch.tensor([int(short)], dtype=torch.int64,
+                                        device=self.device)
+                    short = bool(int(self.mesh.all_reduce(
+                        flag, dist.ReduceOp.MAX)))
+                if short:
+                    raise DeviceMemoryError(
+                        level if level is not None else -1, n, need, free)
             new_pol, new_pmask, overflow = map_materialize(
                 self.mesh, keep_meta, pol, pmask, src, dst, emask,
                 max_embeddings=M, out_width=out_width)
@@ -935,7 +1110,8 @@ def memory_survivor_cap(S: int, slot_bytes: int, free_bytes: int,
     family and takes the count that fits (at least 1).  A cap below the
     level's true survivor count takes the exact materialize-only retry,
     which builds the store of every survivor: a level whose survivors
-    alone do not fit the card ends in CUDA's out-of-memory error."""
+    alone do not fit the card raises ``DeviceMemoryError`` before that
+    store is allocated (``Mirage._materialize_exact``)."""
     fit = int(free_bytes * _STORE_MEMORY_SHARE) // slot_bytes
     if fit >= S:
         return S

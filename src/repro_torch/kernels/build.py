@@ -161,21 +161,26 @@ JOIN_CHUNK = 32
 JOIN_WARPS = 8
 # per warp: its parent's spans, its slot-range ends, its per-graph counts
 JOIN_WARP_BYTES = 3 * JOIN_CHUNK * 4
+# per warp without the CTA's triple span table: also its triple's spans
+JOIN_LAZY_WARP_BYTES = 4 * JOIN_CHUNK * 4
+# the walk's static shared memory (its row counter), rounded up: a block's
+# static and dynamic shared memory share SMEM_MAX
+JOIN_STATIC_BYTES = 16
 
 
 def join_geometry(PP: int, T: int) -> tuple[int, int]:
     """Launch geometry of the join kernels: ``(threads, shared_bytes)`` of
     each CTA of their (graph chunks, PP) grid.  A CTA holds the uint32
-    mask spans of every triple for its 32 graphs, and each warp 3 x 32
-    words of its own; M, F, K, the row count and G take no shared memory
-    and have no limit here.  Raises ``ValueError`` on a shape that does
-    not fit: more triples than one block's shared memory holds spans for,
-    or more partitions than the grid's y limit."""
+    mask spans of every triple for its 32 graphs while that table fits
+    in one block's shared memory (T up to 1,791), and each warp 3 x 32
+    words of its own; past that, the table goes and each warp keeps the
+    spans of its current triple too (the kernel tells the two apart by
+    the shared bytes it is given).  M, F, K, T, the row count and G
+    have no limit here.  Raises ``ValueError`` on more partitions than
+    the grid's y limit."""
     smem = T * JOIN_CHUNK * 4 + JOIN_WARPS * JOIN_WARP_BYTES
-    if smem > SMEM_MAX:
-        raise ValueError(f"T={T} triples: their mask spans take {smem} "
-                         f"bytes, past the {SMEM_MAX} bytes of shared "
-                         f"memory of one block")
+    if smem + JOIN_STATIC_BYTES > SMEM_MAX:
+        smem = JOIN_WARPS * JOIN_LAZY_WARP_BYTES
     if PP > 65535:
         raise ValueError(f"{PP} partitions exceed the CUDA grid limit")
     return JOIN_WARPS * 32, smem

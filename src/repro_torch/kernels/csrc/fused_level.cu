@@ -129,12 +129,14 @@ struct PackedRows {
   }
 };
 
+template <bool kTable>
 __global__ void fused_level_packed_kernel(Stores S, PackedRows rows) {
-  walk_rows(S, rows, rows.s.Cs);
+  walk_rows<kTable>(S, rows, rows.s.Cs);
 }
 
+template <bool kTable>
 __global__ void fused_level_kernel(Stores S, DenseRows rows) {
-  walk_rows(S, rows, rows.s.Cs);
+  walk_rows<kTable>(S, rows, rows.s.Cs);
 }
 
 Stores make_stores(const void* pol, const void* pmask, const void* src,
@@ -163,17 +165,19 @@ extern "C" int fused_level_packed_launch(
     void* sup, void* emb, void* vbits, int PP, int P, int G, int M, int K,
     int T, int F, int NT, int TC, int Gw, int threads, int smem,
     void* stream) {
+  const auto kernel = span_table(T, threads, smem)
+                          ? fused_level_packed_kernel<true>
+                          : fused_level_packed_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_level_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const PackedRows rows{make_sched(meta, tiles, NT, TC),
                         static_cast<const uint32_t*>(gmask), Gw,
                         static_cast<int32_t*>(sup),
                         static_cast<int32_t*>(emb),
                         static_cast<uint32_t*>(vbits)};
-  fused_level_packed_kernel<<<dim3(Gw, PP), threads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(Gw, PP), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       make_stores(pol, pmask, src, dst, emask, PP, P, G, M, K, T, F), rows);
   return (int)cudaGetLastError();
 }
@@ -183,15 +187,17 @@ extern "C" int fused_level_launch(
     const void* src, const void* dst, const void* emask, void* sup,
     void* emb, int PP, int P, int G, int M, int K, int T, int F, int NT,
     int TC, int threads, int smem, void* stream) {
+  const auto kernel = span_table(T, threads, smem)
+                          ? fused_level_kernel<true>
+                          : fused_level_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const DenseRows rows{make_sched(meta, tiles, NT, TC),
                        static_cast<int32_t*>(sup),
                        static_cast<int32_t*>(emb)};
-  fused_level_kernel<<<dim3((G + kChunk - 1) / kChunk, PP), threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3((G + kChunk - 1) / kChunk, PP), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       make_stores(pol, pmask, src, dst, emask, PP, P, G, M, K, T, F), rows);
   return (int)cudaGetLastError();
 }

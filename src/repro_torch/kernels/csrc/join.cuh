@@ -23,11 +23,13 @@
 //     graphs of one partition (lane i <-> graph g0 + i) and walks every
 //     row, so each mask row a launch needs is read once per CTA;
 //   * count first: the CTA computes the span (last set index + 1) of the
-//     emask row of every (triple, graph) once, into shared memory, from
-//     coalesced 16-byte loads of the contiguous (32, F) mask slabs; a
-//     warp does the same for the pmask rows of its current parent when
-//     the parent changes (rows come parent-major, so rarely; any order
-//     stays correct);
+//     emask row of every (triple, graph) once, into a shared table, from
+//     coalesced 16-byte loads of the contiguous (32, F) mask slabs, when
+//     the table of all T triples fits in shared memory (T up to 1,791);
+//     past that, each warp computes the spans of its current triple when
+//     the triple changes, as it does for the pmask rows of its current
+//     parent when the parent changes (rows come parent-major, so parents
+//     change rarely; any order stays correct);
 //   * the warps take rows one at a time from a shared counter and never
 //     wait for each other: a heavy row holds up only its own warp;
 //   * join only inside the spans, with a row's work dealt out evenly
@@ -61,6 +63,17 @@ struct Stores {
   const uint8_t* emask;
   int PP, P, G, M, K, T, F;
 };
+
+constexpr int kWarpWords = 3 * kChunk;   // per warp, beside the table
+
+// Does `smem`, the dynamic shared bytes the wrapper gives a CTA of
+// `threads` threads (kernels/build.py join_geometry), hold the span
+// table of all T triples?  Else each warp keeps its triple's spans.  The
+// launcher picks walk_rows<true> or walk_rows<false> by it.
+inline bool span_table(int T, int threads, int smem) {
+  return (int64_t)T * kChunk * 4 + (int64_t)(threads / 32) * kWarpWords * 4
+         <= smem;
+}
 
 // One candidate row as the walk joins it.
 struct JoinRow {
@@ -130,34 +143,39 @@ __device__ void slab_spans(const uint8_t* p, int n, int W, uint32_t* span,
 //   void emit(int r, uint32_t cnt)   warp-collective; cnt is the lane's
 //                                     graph's joined pairs (0 past G and
 //                                     for rows not joined).
-// Dynamic shared memory (kernels/build.py join_geometry): the triple
-// spans [T][kChunk] (uint32), then per warp the spans of its current
-// parent, the inclusive ends of its graphs' slot ranges and its graphs'
-// joined pairs, [kChunk] 32-bit words each.
-template <class Rows>
+// Dynamic shared memory (kernels/build.py join_geometry): with the table
+// (kTable), the triple spans [T][kChunk] (uint32), then per warp the
+// spans of its current parent, the inclusive ends of its graphs' slot
+// ranges and its graphs' joined pairs, [kChunk] 32-bit words each;
+// without it, per warp those three and the spans of its current triple.
+template <bool kTable, class Rows>
 __device__ void walk_rows(const Stores& S, const Rows& rows, int n_rows) {
   extern __shared__ uint32_t smem_words[];
   static __shared__ int s_next;       // next row to hand out
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int NW = blockDim.x >> 5;
   uint32_t* s_tspan = smem_words;
-  uint32_t* s_pspan = s_tspan + S.T * kChunk + warp * 3 * kChunk;
+  uint32_t* s_pspan = kTable ? s_tspan + S.T * kChunk + warp * kWarpWords
+                              : smem_words + warp * (kWarpWords + kChunk);
   int32_t* s_end = reinterpret_cast<int32_t*>(s_pspan + kChunk);
   uint32_t* s_cnt = s_pspan + 2 * kChunk;
+  uint32_t* s_wtspan = s_pspan + 3 * kChunk;      // no table: the triple's
   const int pp = blockIdx.y, g0 = blockIdx.x * kChunk;
   const int ng = max(0, min(kChunk, S.G - g0));   // 0: a chunk past G
 
-  for (int i = t; i < S.T * kChunk; i += blockDim.x) s_tspan[i] = 0u;
+  if (kTable) {
+    for (int i = t; i < S.T * kChunk; i += blockDim.x) s_tspan[i] = 0u;
+  }
   s_cnt[lane] = 0u;
   if (t == 0) s_next = 0;
   __syncthreads();
-  for (int tr = warp; ng && tr < S.T; tr += NW) {  // one warp per slab
+  for (int tr = warp; kTable && ng && tr < S.T; tr += NW) {  // warp/slab
     slab_spans(S.emask + (((int64_t)pp * S.T + tr) * S.G + g0) * S.F,
                ng * S.F, S.F, s_tspan + tr * kChunk, lane, 32);
   }
   __syncthreads();
 
-  int parent = -1, ps = 0;
+  int parent = -1, ps = 0, triple = -1;
   int64_t pg0 = 0;
   for (;;) {
     int r = 0;
@@ -178,7 +196,17 @@ __device__ void walk_rows(const Stores& S, const Rows& rows, int n_rows) {
         __syncwarp();
         ps = (int)s_pspan[lane];
       }
-      const uint32_t* ts = s_tspan + j.triple * kChunk;
+      const uint32_t* ts = s_wtspan;
+      if (kTable) {
+        ts = s_tspan + j.triple * kChunk;
+      } else if (j.triple != triple) {  // this warp's triple spans
+        triple = j.triple;
+        s_wtspan[lane] = 0u;
+        __syncwarp();
+        slab_spans(S.emask + (((int64_t)pp * S.T + triple) * S.G + g0) * S.F,
+                   ng * S.F, S.F, s_wtspan, lane, 32);
+        __syncwarp();
+      }
       int end_g = ps * (int)ts[lane];
       for (int d = 1; d < 32; d <<= 1) {
         const int n = __shfl_up_sync(0xffffffffu, end_g, d);

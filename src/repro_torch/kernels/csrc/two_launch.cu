@@ -114,8 +114,9 @@ struct JoinRows {
   }
 };
 
+template <bool kTable>
 __global__ void embedding_join_kernel(Stores S, JoinRows rows) {
-  walk_rows(S, rows, rows.C);
+  walk_rows<kTable>(S, rows, rows.C);
 }
 
 // Split a row at p of G int32 into a scalar head [0, head), 16-byte
@@ -193,15 +194,17 @@ extern "C" int embedding_join_launch(
     const void* dst, const void* emask, void* matched, void* count, int PP,
     int P, int G, int M, int K, int T, int F, int C, int threads, int smem,
     void* stream) {
+  const auto kernel = span_table(T, threads, smem)
+                          ? embedding_join_kernel<true>
+                          : embedding_join_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      embedding_join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const JoinRows rows{static_cast<const int32_t*>(meta), C, P, T, G,
                       static_cast<int32_t*>(matched),
                       static_cast<int32_t*>(count)};
-  embedding_join_kernel<<<dim3((G + kChunk - 1) / kChunk, PP), threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3((G + kChunk - 1) / kChunk, PP), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       Stores{static_cast<const int32_t*>(pol),
              static_cast<const uint8_t*>(pmask),
              static_cast<const int32_t*>(src),

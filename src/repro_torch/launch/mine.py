@@ -6,15 +6,23 @@ one device).
         --max-size 4
     python -m repro_torch.launch.mine --dataset paper-toy --minsup 2 \
         --partitions 2 --pipeline legacy --backend pallas --device cpu
+    python -m repro_torch.launch.mine --dataset pubchem-like \
+        --n-graphs 10 --minsup 4 --partitions 2 --max-size 5 --seed 5 \
+        --device cpu --fault-schedule 'kernel_fault@3*2;wire_bitflip@4' \
+        --fault-log faults.jsonl
 
 Runs on the CUDA device by default; ``--device cpu`` runs the plain
-PyTorch versions of the kernels instead.  A malformed input database
+PyTorch versions of the kernels instead.  Any of ``--fault-schedule``,
+``--fault-log``, ``--deadline`` or ``--partial-ok`` mines under the
+recovery supervisor (``core/supervisor.py``); a verified partial result
+exits 0 with a ``PARTIAL RESULT`` line.  A malformed input database
 exits 2 with a one-line diagnosis (graph id + edge index).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -60,6 +68,27 @@ def main() -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write result JSON here")
+    ap.add_argument("--fault-schedule", default=None, metavar="SPEC",
+                    help="chaos mode: inject a deterministic fault "
+                         "schedule, e.g. 'worker_loss@2;wire_bitflip@3'"
+                         " (see repro_torch.runtime.faults); mining runs "
+                         "under the recovery supervisor")
+    ap.add_argument("--max-retries", type=int, default=5,
+                    help="supervisor recovery-attempt budget")
+    ap.add_argument("--fault-log", default=None,
+                    help="write the structured fault-event log (JSONL, "
+                         "one line per event, crash-safe) here; implies "
+                         "supervised mining")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="whole-run wall-clock budget in seconds; "
+                         "implies supervised mining")
+    ap.add_argument("--level-deadline", type=float, default=None,
+                    help="fixed per-phase watchdog deadline in seconds "
+                         "(default: self-calibrating EWMA policy)")
+    ap.add_argument("--partial-ok", action="store_true",
+                    help="on deadline/retry-budget exhaustion return a "
+                         "verified PARTIAL RESULT (exit 0 + marker) "
+                         "instead of raising; implies supervised mining")
     ap.add_argument("--no-audit", action="store_true",
                     help="disable the continuous invariant auditor "
                          "(device audit word + host spot checks)")
@@ -69,7 +98,10 @@ def main() -> None:
 
     from repro_torch.core.graphdb import (GraphValidationError, paper_toy_db,
                                           pubchem_like_db, random_db)
-    from repro_torch.core.mining import Mirage, MirageConfig
+    from repro_torch.core.mining import Mirage, MirageConfig, PartialResult
+    from repro_torch.core.supervisor import MiningSupervisor, SupervisorConfig
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.watchdog import Watchdog
 
     if args.dataset == "paper-toy":
         graphs = paper_toy_db()
@@ -96,28 +128,77 @@ def main() -> None:
         bucket_shapes=not args.no_bucket,
         audit=not args.no_audit, **bucket_kw)
 
+    supervised = (args.fault_schedule or args.fault_log
+                  or args.deadline is not None or args.partial_ok)
+    if args.fault_schedule:
+        schedule = faults.FaultSchedule.parse(args.fault_schedule)
+        faults.install(schedule)
+        print(f"[mine] chaos schedule: {schedule.describe()}")
+
+    if args.fault_log:
+        os.makedirs(os.path.dirname(args.fault_log) or ".", exist_ok=True)
+
+    sup = None
     t0 = time.perf_counter()
-    miner = Mirage(cfg, device=args.device)
     try:
-        res = miner.fit(graphs, resume=args.resume)
+        if supervised:
+            watchdog = None
+            if args.level_deadline is not None:
+                watchdog = Watchdog(run_deadline_s=args.deadline,
+                                    phase_default=args.level_deadline)
+            sup = MiningSupervisor(
+                cfg, SupervisorConfig(
+                    max_retries=args.max_retries,
+                    fault_log_path=args.fault_log,
+                    deadline_s=args.deadline,
+                    on_exhausted="partial" if args.partial_ok
+                    else "raise"),
+                watchdog=watchdog, device=args.device)
+            res = sup.mine(graphs, resume=args.resume)
+            miner = sup.last_miner
+        else:
+            miner = Mirage(cfg, device=args.device)
+            res = miner.fit(graphs, resume=args.resume)
     except GraphValidationError as exc:
+        # a malformed database is an input bug, not a crash: diagnose
+        # (graph id + edge index) on stderr, no traceback
         print(f"[mine] invalid database: {exc}", file=sys.stderr)
         raise SystemExit(2)
     dt = time.perf_counter() - t0
 
+    if sup is not None and sup.events:
+        print(f"[mine] recovered from {len(sup.events)} fault(s):")
+        for ev in sup.events:
+            print(f"  attempt {ev.attempt}: {ev.kind} at level "
+                  f"{ev.level} -> {ev.action} ({ev.detail})")
+    if sup is not None and sup.watchdog and sup.watchdog.trips:
+        for trip in sup.watchdog.trips:
+            print(f"[mine] watchdog trip: level {trip['level']} "
+                  f"exceeded {trip['deadline_s']:.2f}s phase deadline "
+                  f"after {trip['elapsed_s']:.2f}s")
+
+    partial = isinstance(res, PartialResult)
+    if partial:
+        print(f"[mine] PARTIAL RESULT ({res.reason}): verified prefix "
+              f"through level {res.last_level}, audited={res.audited}")
     print(f"[mine] |G|={len(graphs)} minsup={res.minsup} "
           f"partitions={args.partitions} scheme={args.scheme} "
-          f"pipeline={cfg.pipeline} reduce={cfg.reduce} "
+          f"pipeline={miner.cfg.pipeline} reduce={miner.cfg.reduce} "
           f"device={miner.device} backend={miner.backend}")
     print(f"[mine] frequent patterns: {sum(res.counts())} "
           f"(per level: {res.counts()})")
-    print(f"[mine] wall: {dt:.2f}s  overflow: {res.total_overflow}")
-    for st in res.stats:
-        print(f"  level {st.level}: candidates={st.n_candidates} "
-              f"frequent={st.n_frequent} {st.seconds:.2f}s "
-              f"(map {st.map_seconds:.2f}s) imbalance={st.imbalance:.2f}")
+    if partial:
+        print(f"[mine] wall: {dt:.2f}s")
+    else:
+        print(f"[mine] wall: {dt:.2f}s  overflow: {res.total_overflow}")
+        for st in res.stats:
+            print(f"  level {st.level}: candidates={st.n_candidates} "
+                  f"frequent={st.n_frequent} {st.seconds:.2f}s "
+                  f"(map {st.map_seconds:.2f}s) "
+                  f"imbalance={st.imbalance:.2f}")
     if args.audit_report:
-        report = miner.auditor.report if miner.auditor else []
+        report = (sup.audit_report if sup is not None
+                  else (miner.auditor.report if miner.auditor else []))
         with open(args.audit_report, "w") as f:
             json.dump(report, f, indent=1)
         print(f"[mine] audit report ({len(report)} row(s)) -> "
@@ -129,6 +210,10 @@ def main() -> None:
             "levels": [[list(map(list, c)) for c in lvl]
                        for lvl in res.levels],
         }
+        if partial:
+            payload.update(partial=True, reason=res.reason,
+                           last_level=res.last_level,
+                           audited=res.audited)
         with open(args.out, "w") as f:
             json.dump(payload, f)
 

@@ -51,6 +51,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from . import faults
 from .errors import CheckpointIntegrityError
 
 __all__ = ["save_pytree", "load_pytree", "latest_step", "save_step",
@@ -183,6 +184,8 @@ def save_step(root: str, step: int, tree: Any, *,
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(root, f"step_{s:010d}"),
                       ignore_errors=True)
+    # chaos hook: scheduled disk corruption of the step just written
+    faults.corrupt_checkpoint(path, step)
     return path
 
 

@@ -1,30 +1,30 @@
-"""Integrity errors of the mining runtime (the subset of
-``repro.runtime.faults`` this slice needs; fault injection, the
-watchdog and the supervisor are later slices)."""
+"""Errors of the mining runtime: the integrity errors of the failure
+taxonomy (defined in ``runtime/faults.py``, re-exported here) and the
+device-memory error of the exact retry."""
 from __future__ import annotations
 
+from .faults import (AuditError, CheckpointIntegrityError, IntegrityError,
+                     WireIntegrityError)
+
 __all__ = ["IntegrityError", "WireIntegrityError",
-           "CheckpointIntegrityError", "AuditError"]
+           "CheckpointIntegrityError", "AuditError", "DeviceMemoryError"]
 
 
-class IntegrityError(RuntimeError):
-    """Detected corruption of mining state."""
+class DeviceMemoryError(MemoryError):
+    """The store of a level's survivors does not fit the device.
 
+    Raised before the exact retry (or the legacy pipeline's
+    materialization) allocates it: ``survivors`` slots of the child
+    store need ``need_bytes``, and the device has ``free_bytes`` free
+    for this rank.  Not a classified fault, so the supervisor re-raises
+    it: no rung of its ladder needs less memory for the same survivors."""
 
-class WireIntegrityError(IntegrityError):
-    """A level wire failed its checksum on every re-fetch."""
-
-
-class CheckpointIntegrityError(IntegrityError):
-    """A checkpoint is unreadable, truncated or fails its digests."""
-
-
-class AuditError(IntegrityError):
-    """A mining invariant was violated (device audit word or host spot
-    check: monotonicity, compaction, support range, survivor count,
-    downward closure, canonicality, verdict consistency)."""
-
-    def __init__(self, level: int, detail: str):
+    def __init__(self, level: int, survivors: int, need_bytes: int,
+                 free_bytes: int):
         self.level = level
-        self.detail = detail
-        super().__init__(f"audit failed at level {level}: {detail}")
+        self.survivors = survivors
+        self.need_bytes = need_bytes
+        self.free_bytes = free_bytes
+        super().__init__(
+            f"level {level}: the store of its {survivors} survivors needs "
+            f"{need_bytes} bytes, the device has {free_bytes} free")

@@ -318,25 +318,34 @@ def test_stores_keep_set_entries_as_a_prefix(db):
 def test_dense_geometry_at_the_extreme_shapes(monkeypatch):
     """The three join kernels (packed, dense and the two-launch join)
     share one geometry: a CTA's shared memory holds the spans of every
-    triple for 32 graphs, and per warp 3 x 32 words; the largest T that
-    fits launches, one more raises, as do more partitions than the grid
-    takes.  M, F, K, G and the row count do not enter it.  Each wrapper,
-    made to take its card path here, launches with that geometry (F =
-    900 too, past what a per-thread staged edge row could take) and
-    raises ``ValueError`` past it, before it allocates anything."""
+    triple for 32 graphs, and per warp 3 x 32 words, while that fits
+    beside the walk's static shared memory (T up to 1,791); one triple
+    more (and T = 1,914, the seeded DB of ROADMAP queue C, C2) drops the
+    table for 4 x 32 words per warp, and launches too.
+    More partitions than the grid takes raise.  M, F, K, G and the row
+    count do not enter it.  Each wrapper, made to take its card path
+    here, launches with that geometry (F = 900 too, past what a
+    per-thread staged edge row could take)."""
     from repro_torch.kernels import build
     from repro_torch.kernels import embedding_join as tej
     from repro_torch.kernels.bitset import tail_mask
     warps = build.JOIN_WARPS * build.JOIN_WARP_BYTES
-    t_max = (build.SMEM_MAX - warps) // (build.JOIN_CHUNK * 4)
+    lazy = build.JOIN_WARPS * build.JOIN_LAZY_WARP_BYTES
+    t_max = ((build.SMEM_MAX - build.JOIN_STATIC_BYTES - warps)
+             // (build.JOIN_CHUNK * 4))
     threads, smem = build.join_geometry(8, t_max)
-    assert threads == build.JOIN_WARPS * 32 and smem <= build.SMEM_MAX
+    assert threads == build.JOIN_WARPS * 32
+    assert smem + build.JOIN_STATIC_BYTES <= build.SMEM_MAX
+    assert smem == t_max * build.JOIN_CHUNK * 4 + warps
     assert build.join_geometry(1, 1) == (threads,
                                          build.JOIN_CHUNK * 4 + warps)
-    with pytest.raises(ValueError, match="shared"):
-        build.join_geometry(8, t_max + 1)
+    assert t_max == 1791
+    for T in (t_max + 1, 1914, 100_000):
+        assert build.join_geometry(8, T) == (threads, lazy)
     with pytest.raises(ValueError, match="grid"):
         build.join_geometry(65536, 45)
+    with pytest.raises(ValueError, match="grid"):
+        build.join_geometry(65536, 1914)
 
     launched = []
     for mod in (tfl, tej):
@@ -348,20 +357,101 @@ def test_dense_geometry_at_the_extreme_shapes(monkeypatch):
     meta = sched[:, :5].contiguous()
     pol = torch.zeros((1, 2, 1, 4, 3), dtype=torch.int32)
     pmask = torch.ones((1, 2, 1, 4), dtype=torch.bool)
-    for T, F in ((t_max, 900), (t_max + 1, 2)):
+    want = []
+    for T, F, geom in ((t_max, 900, (threads, smem)),
+                       (t_max + 1, 2, (threads, lazy)),
+                       (1914, 2, (threads, lazy))):
         src = torch.zeros((1, T, 1, F), dtype=torch.int32)
         stores = (pol, pmask, src, src.clone(),
                   torch.ones(src.shape, dtype=torch.bool))
-        calls = (lambda: tfl.fused_level_packed(sched, tiles, tail_mask(1),
-                                                *stores),
-                 lambda: tfl.fused_level(sched, tiles, *stores),
-                 lambda: tej.embedding_join(meta, *stores))
-        for call in calls:
-            if T > t_max:
-                with pytest.raises(ValueError, match="shared memory"):
-                    call()
-            else:
-                call()
-    assert launched == [(name, (threads, smem)) for name in
-                        ("fused_level_packed", "fused_level",
-                         "embedding_join")]
+        tfl.fused_level_packed(sched, tiles, tail_mask(1), *stores)
+        tfl.fused_level(sched, tiles, *stores)
+        tej.embedding_join(meta, *stores)
+        want += [(name, geom) for name in
+                 ("fused_level_packed", "fused_level", "embedding_join")]
+    assert launched == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1791, 1792, 1914])
+def test_cuda_joins_at_any_triple_count(T):
+    """The three join kernels equal their plain versions on both sides of
+    the span table's limit: T = 1,791 keeps the CTA's table of every
+    triple's spans, T = 1,792 (which the table fitted only without the
+    walk's static shared memory) and T = 1,914 (the seeded DB of ROADMAP
+    queue C, C2) have each warp compute its current triple's spans
+    instead; rows name triples at random, so the triple changes on
+    nearly every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: no CUDA device is present")
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_join import embedding_join
+    shape = dict(C=60, P=5, G=70, M=6, K=3, T=T, F=4, masks="prefix")
+    meta, sched, stores = _kernel_inputs(shape, 2, 4, 96, seed=19)
+    rng = np.random.default_rng(19)
+    sched = _unsort(sched, rng)
+    cpu = [torch.from_numpy(x) for x in (sched.meta, sched.tiles, *stores)]
+    gpu = [x.cuda() for x in cpu]
+    for f in (tops.fused_level_supports_packed, tops.fused_level_supports):
+        got = f(*gpu)
+        torch.cuda.synchronize()
+        for a, b in zip(got, f(*cpu)):
+            assert torch.equal(a.cpu(), b)
+    rows = [torch.from_numpy(meta), *cpu[2:]]
+    got = embedding_join(*[x.cuda() for x in rows])
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref.embedding_join_ref(*rows)):
+        assert torch.equal(a.cpu(), b)
+
+
+# ROADMAP queue C, C2: a seeded DB with T = 1,914 directed triples
+C2_DB = dict(n_graphs=400, n_vertices=8, extra_edge_prob=0.3, n_vlabels=40,
+             n_elabels=2, seed=0)
+
+
+
+
+def test_c2_db_and_its_host_oracle_equal_the_reference():
+    """The C2 DB of the port is the JAX package's ``random_db`` graph for
+    graph, it has T = 1,914 frequent directed triples, and the port's
+    ``mine_host`` equals the JAX package's on it.  With the ``cuda`` case
+    below, which holds the card's run to the port's ``mine_host``, this
+    ties the card's result on the DB to the reference."""
+    from repro.core import graphdb as jgraphdb
+    from repro.core.host_miner import mine_host as jmine_host
+    from repro_torch.core.graphdb import random_db
+    from repro_torch.core.host_miner import mine_host
+    from repro_torch.core.partition import make_partitions
+    graphs = random_db(**C2_DB)
+    jgraphs = jgraphdb.random_db(**C2_DB)
+    for g, j in zip(graphs, jgraphs, strict=True):
+        for a in ("vlabels", "edges", "elabels"):
+            assert np.array_equal(getattr(g, a), getattr(j, a))
+    alphabet = make_partitions(graphs, 2, 8).alphabet
+    assert len({t for c in alphabet.canonical()
+                for t in (c, (c[2], c[1], c[0]))}) == 1914
+    want = {c: i.support for c, i in
+            jmine_host(jgraphs, 2, max_size=3).frequent.items()}
+    got = {c: i.support for c, i in
+           mine_host(graphs, 2, max_size=3).frequent.items()}
+    assert len(want) == 1075
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_cuda_mines_past_the_span_table_equal_to_mine_host():
+    """The seeded DB of ROADMAP queue C, C2 (T = 1,914 directed triples)
+    mines on the card with the fused backend, equal to ``mine_host``
+    (held to the JAX package's by
+    ``test_c2_db_and_its_host_oracle_equal_the_reference``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: no CUDA device is present")
+    from repro_torch.core.graphdb import random_db
+    from repro_torch.core.host_miner import mine_host
+    from repro_torch.core.mining import Mirage, MirageConfig
+    graphs = random_db(**C2_DB)
+    res = Mirage(MirageConfig(minsup=2, n_partitions=8, max_size=3,
+                              backend="fused")).fit(graphs)
+    want = mine_host(graphs, 2, max_size=3)
+    assert len(want.frequent) == 1075
+    assert res.supports == {c: i.support for c, i in want.frequent.items()}

@@ -65,6 +65,26 @@ is present, or when the port is not next to it.  Phases:
                3 descends the ladder to the two-launch kernels, which
                mine levels 2-4 afresh, level 4's flipped wire heals with
                one re-fetch, and the result equals phase 4's oracle.
+ 11. device-loop — run right after phase 4: ``pipeline="device_loop"``,
+               the whole run queued on the card with no host read
+               between levels (device candgen, canonicality machine and
+               schedule, then B1 / B2 / B3 + B4 in each level body), on
+               the 18-graph DB of ``tests/test_device_loop.py`` with the
+               packed and dense fused kernels and the two-launch kernels
+               (and ``candgen="device"`` once), then phase 4's database
+               and config; each run completes without falling back to
+               single-sync, equals ``mine_host`` (and phase 4's levels,
+               in order), makes one wire copy per run under sync debug
+               mode 'error' held from its first body, and launches its
+               kernels once per body.  Every kernel call of the small
+               runs, and the first call of a 40K run (a second fit
+               ended there), is held against its plain version on the
+               same inputs (device-built schedule, pad rows and tiles,
+               SPP-slot stores; max abs err 0).  The 40K run's bodies
+               are timed with CUDA events (with the share of pass 2
+               spent on slots past the survivors), and one more body
+               with no parents left, on its final carry, times a level
+               past the fixpoint.
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -728,7 +748,7 @@ def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
     """Drive Mirage.fit at full scale (``MAIN_CFG`` plus ``cfg_kw``) and
     check it against ``mine_host`` (``want``: the result, or the future
     of the oracle process computing it beside the fit); returns (result,
-    launches, seconds, want).  Nothing of the run is
+    launches, seconds, want, peak bytes).  Nothing of the run is
     held past a level, so the peak memory and the survivor caps are the
     miner's own.  A single-sync run has every level dispatch under sync
     debug mode 'error' and must make one wire fetch per level."""
@@ -790,7 +810,413 @@ def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
     check(sorted(res.supports.items()) == want,
           "the frequent set differs from mine_host")
     say(f"phase {label}: frequent set and supports equal mine_host")
-    return res, launches, secs, want
+    return res, launches, secs, want, peak
+
+
+@contextlib.contextmanager
+def run_guard():
+    """Count the device loop's program calls, level bodies and wire
+    copies (yielded as ``{"calls": n, "bodies": n, "copies": n, "spp":
+    [SPP of each run], "last": (program, carry, last k, inputs)}``).
+    Every program call runs under sync debug mode 'error' from its first
+    body, and the mode is lifted only for the wire copy, so that any
+    other device→host read of the run raises.  The last program call's
+    carry is kept for :func:`dead_body_seconds`, and dropped before the
+    next run's slot clamp reads the free memory."""
+    import torch
+    import repro_torch.core.device_loop as device_loop
+    import repro_torch.core.level_step as level_step
+    from repro_torch.core.mining import Mirage
+    orig_prog = device_loop._run_program
+    orig_copy = level_step._copy_to_host
+    orig_slots = Mirage._device_loop_slots
+    counts = {"calls": 0, "bodies": 0, "copies": 0, "spp": [], "last": None}
+
+    def program(*key):
+        prog = orig_prog(*key)
+
+        def guarded(carry, k_first, n_bodies, *args):
+            counts["calls"] += 1
+            counts["bodies"] += n_bodies
+            counts["last"] = (prog, carry, k_first + n_bodies - 1, args)
+            if torch.cuda.get_sync_debug_mode() == 0:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            return prog(carry, k_first, n_bodies, *args)
+        return guarded
+
+    def copy(wire_d):
+        torch.cuda.set_sync_debug_mode(0)
+        counts["copies"] += 1
+        return orig_copy(wire_d)
+
+    def slots(self, *args, **kw):
+        counts["last"] = None
+        counts["spp"].append(orig_slots(self, *args, **kw))
+        return counts["spp"][-1]
+
+    device_loop._run_program = program
+    level_step._copy_to_host = copy
+    Mirage._device_loop_slots = slots
+    try:
+        yield counts
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        device_loop._run_program = orig_prog
+        level_step._copy_to_host = orig_copy
+        Mirage._device_loop_slots = orig_slots
+
+
+class Captured(Exception):
+    """Raised by :func:`kernel_calls` to end a fit at its first kernel
+    call."""
+
+
+@contextlib.contextmanager
+def kernel_calls(stop_at_first: bool = False):
+    """Record the arguments of every call that the ops layer makes to
+    the join kernels B1, B2 and B3 (yielded as a list of (name, args));
+    with ``stop_at_first``, raise :class:`Captured` at the first call,
+    before it launches, so that the fit holds no store past it."""
+    import repro_torch.kernels.ops as ops
+    names = ("fused_level_packed", "fused_level", "embedding_join")
+    orig = {n: getattr(ops, n) for n in names}
+    calls = []
+
+    def wrap(name):
+        def call(*args, **kw):
+            check(not kw, f"{name}: called with keywords {sorted(kw)}")
+            calls.append((name, args))
+            if stop_at_first:
+                raise Captured(name)
+            return orig[name](*args)
+        return call
+
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+
+
+def hold_calls_against_plain(label: str, calls) -> dict:
+    """Run each captured kernel call, and its plain PyTorch version, on
+    the same inputs (B4 on B3's outputs); every output must agree
+    exactly.  Returns the calls held per kernel.  Comparison launches
+    are not counted."""
+    import torch
+    from repro_torch.kernels import fused_level as fl
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_join import embedding_join
+    from repro_torch.kernels.support_count import support_count
+    pairs = {"fused_level_packed": (fl.fused_level_packed,
+                                    fl.fused_level_packed_ref),
+             "fused_level": (fl.fused_level, fl.fused_level_ref),
+             "embedding_join": (embedding_join, ref.embedding_join_ref)}
+    before = launch_counts()
+    held = {}
+    for name, args in calls:
+        kernel, plain = pairs[name]
+        outs = [(name, kernel(*args), plain(*args))]
+        if name == "embedding_join":
+            joined = outs[0][1]
+            outs.append(("support_count", support_count(*joined),
+                         ref.support_count_ref(*joined)))
+        torch.cuda.synchronize()
+        for n, got, want in outs:
+            err = max_abs_err(got, want)
+            check(err == 0, f"{label}: {n} disagrees with its plain version "
+                            f"on the device loop's inputs (max abs err "
+                            f"{err})")
+            held[n] = held.get(n, 0) + 1
+    restore_launch_counts(before)
+    return held
+
+
+def schedule_shape(calls) -> str:
+    """The device-built schedules and stores of captured B1/B2 calls:
+    rows, pad rows (valid = 0), tiles, and the stores' (SPP, M)."""
+    out = []
+    for name, args in calls:
+        if name == "embedding_join":
+            meta, pol = args[0], args[1]
+            out.append(f"meta {meta.shape[0]} rows, store SPP "
+                       f"{pol.shape[1]} M {pol.shape[3]}")
+            continue
+        sched, tiles = args[0], args[1]
+        pol = args[3] if name == "fused_level_packed" else args[2]
+        out.append(f"{sched.shape[0]} rows ({int((sched[:, 5] == 0).sum())}"
+                   f" pad), {tiles.shape[0]} tiles, store SPP "
+                   f"{pol.shape[1]} M {pol.shape[3]}")
+    return "; ".join(out)
+
+
+@contextlib.contextmanager
+def body_events():
+    """Stamp each level body of the device loop with CUDA events (no
+    host read): at its start (its candgen), around each pass-2 slot and
+    at the run wire that ends a program call, with the host's clock at
+    the same points.  Yields the list of bodies, each ``{"start": event,
+    "host": seconds, "slots": [(event, event)], "end": event,
+    "host_end": seconds}``."""
+    import torch
+    import repro_torch.core.device_loop as dl
+    orig = {n: getattr(dl, n)
+            for n in ("device_candidates", "materialize_one", "run_wire")}
+    bodies = []
+
+    def stamp():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def candidates(*args, **kw):
+        ev = stamp()
+        if bodies and "end" not in bodies[-1]:
+            bodies[-1]["end"] = ev
+            bodies[-1]["host_end"] = time.perf_counter()
+        bodies.append({"start": ev, "host": time.perf_counter(),
+                       "slots": []})
+        return orig["device_candidates"](*args, **kw)
+
+    def materialize(*args, **kw):
+        e0 = stamp()
+        out = orig["materialize_one"](*args, **kw)
+        bodies[-1]["slots"].append((e0, stamp()))
+        return out
+
+    def wire(carry):
+        bodies[-1]["end"] = stamp()
+        bodies[-1]["host_end"] = time.perf_counter()
+        return orig["run_wire"](carry)
+
+    dl.device_candidates = candidates
+    dl.materialize_one = materialize
+    dl.run_wire = wire
+    try:
+        yield bodies
+    finally:
+        for n, fn in orig.items():
+            setattr(dl, n, fn)
+
+
+# the launches of one level body, per device-loop backend
+BODY_KERNELS = {"fused_packed": ("fused_level_packed",),
+                "fused": ("fused_level",),
+                "pallas": ("embedding_join", "support_count")}
+
+
+def device_loop_fit(graphs, hooks=(), **cfg_kw):
+    """One ``pipeline="device_loop"`` fit under :func:`run_guard` and the
+    context managers ``hooks`` (their values are returned in order),
+    kernel launches counted from 0; a fallback to single-sync fails.
+    Returns (miner, result, launches, guard counts, seconds, peak bytes,
+    hook values)."""
+    import torch
+    import repro_torch.core.mining as mining
+    miner = mining.Mirage(mining.MirageConfig(pipeline="device_loop",
+                                              **cfg_kw))
+    with run_guard() as counts, contextlib.ExitStack() as stack:
+        got = [stack.enter_context(h) for h in hooks]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = miner.fit(graphs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+    info = miner.last_device_loop
+    check(info is not None and info["completed"],
+          f"the device loop fell back to single-sync: {info}")
+    runs = info["escalations"] + 1
+    check(counts["copies"] == runs,
+          f"{counts['copies']} wire copies for {runs} run(s)")
+    check(counts["bodies"] == runs * info["n_levels"],
+          f"{counts['bodies']} bodies for {runs} run(s) of "
+          f"{info['n_levels']} level slots")
+    peak = torch.cuda.max_memory_allocated()
+    return miner, res, launches, counts, secs, peak, got
+
+
+def dead_body_seconds(counts) -> float:
+    """Seconds (host clock, synchronized) of one more level body on the
+    last run's final carry with no parents left (``n_par = 0``): the cost
+    of each level past the fixpoint.  Its launches are not counted."""
+    import torch
+    prog, carry, k_last, args = counts.pop("last")
+    carry.n_par.zero_()
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prog(carry, k_last, 1, *args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    restore_launch_counts(before)
+    return secs
+
+
+def body_split(bodies, n_levels: int, n_keep: list[int]):
+    """Per-body milliseconds (device clock, start to next start), the
+    host's milliseconds to queue it, and for the last run's bodies the
+    share of pass 2 spent on slots past the survivors (masked)."""
+    ms = [round(b["start"].elapsed_time(b["end"]), 1) for b in bodies]
+    host = [round(1e3 * (b["host_end"] - b["host"]), 1) for b in bodies]
+    masked, pass2 = [], []
+    for b, keep in zip(bodies[-n_levels:], n_keep):
+        slots = b["slots"]
+        total = slots[0][0].elapsed_time(slots[-1][1])
+        valid = min(keep, len(slots))
+        tail = (slots[valid][0].elapsed_time(slots[-1][1])
+                if valid < len(slots) else 0.0)
+        pass2.append(round(total, 1))
+        masked.append(round(tail / total, 3))
+    return ms, host, pass2, masked
+
+
+def check_body_launches(label, backend, launches, counts):
+    want = BODY_KERNELS[backend]
+    for name in want:
+        check(launches[name] == counts["bodies"],
+              f"{label}: {name} launched {launches[name]} times over "
+              f"{counts['bodies']} bodies")
+    check(all(n == 0 for k, n in launches.items() if k not in want),
+          f"{label}: another kernel ran ({launches})")
+
+
+def phase_device_loop(graphs40, want40, single_sync, card: str) -> None:
+    """The device-loop phase: ``pipeline="device_loop"`` on the 18-graph
+    DB of ``tests/test_device_loop.py`` with the packed and dense fused
+    kernels and the two-launch kernels (and ``candgen="device"`` once),
+    then phase 4's database and config mined as one device-resident run
+    beside phase 4's single-sync numbers (``single_sync``: its result,
+    fit seconds and peak bytes).  Every run must complete without
+    falling back, equal ``mine_host``, make one wire copy per run under
+    sync debug mode 'error', and launch its kernels once per body; the
+    kernels' inputs in the loop are held against their plain versions
+    (every call on the small DB, the first call of a 40K run)."""
+    phase_device_loop_small()
+    phase_device_loop_main(graphs40, want40, single_sync, card)
+
+
+def phase_device_loop_small() -> None:
+    """Phase 11 (a): the 18-graph DB on each level body's kernels, every
+    kernel call of each run held against its plain version."""
+    from repro_torch.core.graphdb import random_db
+    from repro_torch.core.host_miner import mine_host
+    from repro_torch.core.mining import Mirage, MirageConfig
+    graphs = random_db(18, n_vertices=6, extra_edge_prob=0.35, n_vlabels=3,
+                       n_elabels=2, seed=42)
+    small = dict(minsup=3, n_partitions=2, max_size=4)
+    want = sorted((c, i.support) for c, i in
+                  mine_host(graphs, 3, max_size=4).frequent.items())
+    for backend in ("fused_packed", "fused", "pallas"):
+        miner, res, launches, counts, secs, _, (calls,) = device_loop_fit(
+            graphs, hooks=[kernel_calls()], backend=backend,
+            packed_support=backend == "fused_packed", **small)
+        check(sorted(res.supports.items()) == want,
+              f"device loop {backend}: the frequent set differs from "
+              f"mine_host")
+        check_body_launches(f"device loop {backend}", backend, launches,
+                            counts)
+        check(len(calls) == counts["bodies"],
+              f"device loop {backend}: {len(calls)} kernel calls captured "
+              f"over {counts['bodies']} bodies")
+        held = hold_calls_against_plain(f"device loop {backend}", calls)
+        say(f"phase 11 device-loop: random_db(18, seed=42) backend="
+            f"{backend}: fit {secs:.2f}s, frequent per level "
+            f"{res.counts()}, {counts['bodies']} bodies in "
+            f"{counts['calls']} call(s), {counts['copies']} wire copy, "
+            f"launches {launches}; equal to mine_host")
+        say(f"phase 11 device-loop: {backend} kernel inputs per body "
+            f"[{schedule_shape(calls)}]; every call exact against the "
+            f"plain version (max abs err 0; calls held {held})")
+    res = Mirage(MirageConfig(candgen="device", **small)).fit(graphs)
+    check(sorted(res.supports.items()) == want,
+          "candgen='device': the frequent set differs from mine_host")
+    say("phase 11 device-loop: random_db(18, seed=42) single-sync with "
+        "candgen='device' equal to mine_host")
+
+
+def first_device_loop_call(graphs, **cfg_kw):
+    """The arguments of the first kernel call of a device-loop fit, from
+    a second fit ended at that call (no launch of it is counted)."""
+    import repro_torch.core.mining as mining
+    before = launch_counts()
+    with kernel_calls(stop_at_first=True) as calls:
+        try:
+            mining.Mirage(mining.MirageConfig(pipeline="device_loop",
+                                              **cfg_kw)).fit(graphs)
+        except Captured:
+            pass
+    restore_launch_counts(before)
+    check(len(calls) == 1, "the device loop never reached a kernel")
+    return calls
+
+
+def phase_device_loop_main(graphs40, want40, single_sync, card: str) -> None:
+    """Phase 11 (b): phase 4's database and config as one device-resident
+    run, beside phase 4's single-sync numbers; then the cost of one body
+    past the fixpoint, and the first kernel call of such a run held
+    against its plain version."""
+    import torch
+    from repro_torch.core.buckets import bucket_size
+    res4, secs4, peak4 = single_sync
+    miner, res, launches, counts, secs, peak, (bodies,) = device_loop_fit(
+        graphs40, hooks=[body_events()], **MAIN_CFG)
+    info = miner.last_device_loop
+    check(sorted(res.supports.items()) == want40,
+          "device loop 40K: the frequent set differs from mine_host")
+    check(res.levels == res4.levels,
+          "device loop 40K: the levels differ from phase 4's, in order")
+    check_body_launches("device loop 40K", "fused_packed", launches, counts)
+    spp_full = max(bucket_size(len(res.levels[0]), 32), info["c_budget"])
+    level_s = sum(st.seconds for st in res4.stats)
+    runs = info["escalations"] + 1
+    m_runs = [info["max_embeddings"] >> (runs - 1 - i) for i in range(runs)]
+    n_levels = info["n_levels"]
+    ms, host, pass2, masked = body_split(
+        bodies, n_levels, (res.counts()[1:] + [0] * n_levels)[:n_levels])
+    say(f"phase 11 device-loop 40K ({card}): fit {secs:.2f}s, levels "
+        f"{sum(st.seconds for st in res.stats):.2f}s (one run program), "
+        f"peak device memory {peak} bytes, "
+        f"{counts['bodies']} bodies, {counts['copies']} wire copies, B1 "
+        f"launches {launches['fused_level_packed']}; CB "
+        f"{info['c_budget']}, CBR {info['raw_budget']}, ROWS "
+        f"{info['sched_rows']}, tile_c {info['tile_c']}, SPP per run "
+        f"{counts['spp']} at M {m_runs} (unclamped {spp_full}), M_run "
+        f"{info['max_embeddings']}, escalations {info['escalations']}")
+    say(f"phase 11 device-loop 40K bodies ({card}; CUDA events, a body "
+        f"from its candgen to the next body's or the run wire): ms "
+        f"{ms}, host ms to queue each {host}; last run: pass 2 ms "
+        f"{pass2}, share of pass 2 on slots past the survivors "
+        f"{masked}")
+    say(f"phase 11 device-loop 40K beside phase 4's single-sync: fit "
+        f"{secs:.2f}s vs {secs4:.2f}s, Σ level s "
+        f"{sum(st.seconds for st in res.stats):.2f} vs {level_s:.2f}, "
+        f"peak {peak} vs {peak4} bytes, candidates per level "
+        f"{[st.n_candidates for st in res.stats]}, frequent "
+        f"{res.counts()}; equal to mine_host")
+    dead = dead_body_seconds(counts)
+    say(f"phase 11 device-loop 40K ({card}): one body past the fixpoint "
+        f"(n_par 0) at SPP {info['spp']}, M {info['max_embeddings']} "
+        f"takes {dead:.3f}s")
+    del miner, res, counts, bodies
+    torch.cuda.empty_cache()
+    calls = first_device_loop_call(graphs40, **MAIN_CFG)
+    sched = calls[0][1][0]
+    check(sched.shape[0] == info["sched_rows"],
+          f"device loop 40K: the first call's schedule has "
+          f"{sched.shape[0]} rows, the run {info['sched_rows']}")
+    t0 = time.perf_counter()
+    held = hold_calls_against_plain("device loop 40K", calls)
+    say(f"phase 11 device-loop 40K: the first body's B1 inputs "
+        f"[{schedule_shape(calls)}] exact against the plain version (max "
+        f"abs err 0; {held}; {time.perf_counter() - t0:.1f}s)")
+    del calls, sched
+    torch.cuda.empty_cache()
 
 
 def level2_inputs(graphs, wrapped: str, **cfg_kw):
@@ -991,10 +1417,11 @@ def make_graphs(spec):
 def mine_on_rank(mesh, graphs, cfg_kw: dict, sync_debug: bool) -> dict:
     """One fit on this rank, kernel launches counted from 0, each level's
     wire fetches counted, every dispatch under sync debug mode 'error'
-    when ``sync_debug``."""
+    when ``sync_debug``; a device-loop fit runs under :func:`run_guard`
+    (its run wire copies counted)."""
     import torch
     import repro_torch.core.mining as mining
-    with level_guard(sync_debug) as counts:
+    with level_guard(sync_debug) as counts, run_guard() as run_counts:
         miner = mining.Mirage(mining.MirageConfig(**cfg_kw), mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1008,6 +1435,8 @@ def mine_on_rank(mesh, graphs, cfg_kw: dict, sync_debug: bool) -> dict:
             "launches": launches, "fetches": counts["fetch"],
             "peak": torch.cuda.max_memory_allocated(),
             "backend": miner.backend, "counts": res.counts(),
+            "device_loop": miner.last_device_loop,
+            "run_copies": run_counts["copies"],
             "stats": [(st.level, st.n_candidates, st.n_frequent,
                        st.rebalanced, st.imbalance, st.seconds,
                        st.map_seconds, st.survivor_cap, st.retried,
@@ -1143,7 +1572,13 @@ def check_ranks(label: str, results: list[dict], want: dict) -> None:
             check(got["supports"] == want[name],
                   f"{label} {name} rank {r}: the frequent set differs from "
                   f"mine_host")
-            if got["fetches"]:
+            info = got["device_loop"]
+            if info is not None:
+                check(info["completed"] and got["run_copies"]
+                      == info["escalations"] + 1,
+                      f"{label} {name} rank {r}: device loop {info}, "
+                      f"{got['run_copies']} run wire copies")
+            elif got["fetches"]:
                 check(set(got["fetches"].values()) == {1}
                       and len(got["fetches"]) == len(got["stats"]),
                       f"{label} {name} rank {r}: wire fetches per level "
@@ -1364,12 +1799,18 @@ def phase_multiworker_main(want40) -> None:
 
 def phase_nccl() -> None:
     """Phase 9: a one-rank NCCL group on the card mines the small DBs,
-    every level dispatch under sync debug mode 'error'."""
+    every level dispatch under sync debug mode 'error', and (the DBs
+    with a ``max_size``) as one device-loop run, its collectives inside
+    the level bodies, under sync debug mode 'error' to its wire copy."""
     runs, want = [], {}
     for db, minsup, max_size in ((TOY_DB, 2, None), (CONFORMANCE_DB, 5, 3),
                                  (PUBCHEM20_DB, 5, 4)):
-        for name, kw in ((f"{db[0]} fused", {}),
-                         (f"{db[0]} pallas", dict(backend="pallas"))):
+        kinds = [(f"{db[0]} fused", {}),
+                 (f"{db[0]} pallas", dict(backend="pallas"))]
+        if max_size is not None:
+            kinds.append((f"{db[0]} device_loop",
+                          dict(pipeline="device_loop")))
+        for name, kw in kinds:
             runs.append((name, db, dict(minsup=minsup, max_size=max_size,
                                         n_partitions=2, **kw)))
             want[name] = oracle(db, minsup, max_size)
@@ -1384,9 +1825,10 @@ def phase_nccl() -> None:
           and launches["embedding_join"] > 0,
           f"phase 9: kernel launches {launches}")
     say(f"phase 9 nccl: a one-rank NCCL group on cuda:0, {len(runs)} fits "
-        f"(3 DBs x fused, two-launch) equal to mine_host; {levels} level "
-        f"dispatches ran their collectives under sync debug mode 'error' "
-        f"with 1 wire fetch each; kernel launches {launches} "
+        f"(3 DBs x fused, two-launch; 2 as device-loop runs) equal to "
+        f"mine_host; {levels} levels ran their collectives under sync "
+        f"debug mode 'error' with 1 wire fetch each (a device-loop run: "
+        f"1 per run); kernel launches {launches} "
         f"({time.perf_counter() - t0:.1f}s)")
 
 
@@ -1421,17 +1863,22 @@ def main() -> int:
         oracle80 = pool.submit(oracle, MAIN80_DB, main_minsup(80_000),
                                MAIN_CFG["max_size"])
         graphs40 = make_db("4 packed", 40_000, 0)
-        _, launches4, _, want40 = main_run("4 packed", graphs40, True,
-                                           oracle40)
+        res4, launches4, secs4, want40, peak4 = main_run(
+            "4 packed", graphs40, True, oracle40)
         check(launches4["fused_level_packed"] > 0,
               "the packed kernel never launched on the main path")
+        torch.cuda.empty_cache()
+        phase_device_loop(graphs40, want40, (res4, secs4, peak4), card)
+        del res4
+        torch.cuda.empty_cache()
         args4 = level2_inputs(graphs40, "fused_level_packed")
         rec_packed = kernel_record("fused_level_packed", args4, True,
                                    launches4["fused_level_packed"])
         del args4
         torch.cuda.empty_cache()
         graphs80 = make_db("5 dense", 80_000, 1)
-        _, launches5, _, _ = main_run("5 dense", graphs80, False, oracle80)
+        _, launches5, _, _, _ = main_run("5 dense", graphs80, False,
+                                         oracle80)
         check(launches5["fused_level"] > 0,
               "the dense kernel never launched on the main path")
         args5 = level2_inputs(graphs80, "fused_level")
@@ -1440,7 +1887,7 @@ def main() -> int:
         del args5, graphs80
         torch.cuda.empty_cache()
 
-        res6, launches6, _, _ = main_run("6 two-launch", graphs40, True,
+        res6, launches6, _, _, _ = main_run("6 two-launch", graphs40, True,
                                          want40, backend="pallas")
         n6 = len(res6.stats)
         check(launches6["embedding_join"] == launches6["support_count"]
@@ -1453,7 +1900,7 @@ def main() -> int:
         del args6
         torch.cuda.empty_cache()
 
-        _, launches7, _, _ = main_run("7 legacy", graphs40, False,
+        _, launches7, _, _, _ = main_run("7 legacy", graphs40, False,
                                       want40, pipeline="legacy",
                                       backend="pallas")
         check(launches7["embedding_join"] > 0

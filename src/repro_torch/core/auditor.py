@@ -18,10 +18,9 @@ the supervisor heals by checkpoint replay.
 
 :func:`audit_frequent_set` re-verifies a whole frequent set (levels +
 supports) — the final gate a checkpoint passes before the supervisor
-cuts a :class:`~repro_torch.core.mining.PartialResult` at it.  It runs
-the exact host canonicality checker: the JAX package's bounded array
-machine (``device=True``) comes with the device-loop slice (ROADMAP
-queue A item 11).
+cuts a :class:`~repro_torch.core.mining.PartialResult` at it.  It
+cross-checks canonicality on the bounded array machine of the device
+loop (``dfscode.min_dfs_canonical_array``), as the JAX package does.
 
 :func:`audit_overhead_model` is the deterministic cost proxy of the
 audit's share of a level's host↔device traffic.
@@ -32,6 +31,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..runtime.errors import AuditError
 from . import dfscode
@@ -48,18 +48,34 @@ def describe_audit_word(word: int) -> str:
     return "+".join(names) if names else "clean"
 
 
+# state budget for the array canonicality machine; overflow falls back
+# to the exact host checker
+_CANON_MAX_STATES = 64
+
+
 def _is_canonical(code, device: bool = False) -> Optional[bool]:
-    """Spot-check one code's canonicality with the exact host checker
-    (no device traffic, so the one-transfer-per-level contract holds).
-    ``device=True`` asks for the JAX package's bounded array machine,
-    which is not ported yet."""
-    if device:
-        raise NotImplementedError(
-            "the device canonicality machine is not ported yet (ROADMAP "
-            "queue A item 11)")
-    if len(code) < 2:
+    """Spot-check one code's canonicality.
+
+    ``device=False`` (the in-loop default) runs the exact host checker
+    — zero device traffic, preserving the pipeline's one-sync-per-level
+    contract.  ``device=True`` (the offline partial-result gate) runs
+    the bounded ``min_dfs_canonical_array`` machine instead, cross-
+    validating the device loop's implementation — on CPU tensors: one
+    code is far too little work to send to a card; None = inconclusive
+    (state overflow, or a code past the machine's 31 edges)."""
+    L = len(code)
+    if L < 2:
         return True
-    return bool(dfscode.is_canonical(tuple(code)))
+    if not device:
+        return bool(dfscode.is_canonical(tuple(code)))
+    if L >= 32:
+        return None
+    arr = torch.from_numpy(dfscode.code_to_array(tuple(code), L))[None]
+    canonical, overflow = dfscode.min_dfs_canonical_array(
+        arr, n_vertex_slots=L + 1, max_states=_CANON_MAX_STATES)
+    if bool(overflow[0]):
+        return None
+    return bool(canonical[0])
 
 
 @dataclasses.dataclass
@@ -72,7 +88,8 @@ class Auditor:
     samples: int = 2
     seed: int = 0
     # True routes canonicality spot checks through the device array
-    # machine, which comes with ROADMAP queue A item 11
+    # machine (offline gates only — in-loop audits stay host-pure to
+    # preserve the one-sync-per-level contract)
     device_canon: bool = False
     report: list = dataclasses.field(default_factory=list)
 
@@ -205,11 +222,10 @@ def audit_frequent_set(levels: Sequence[Sequence], supports: dict,
     """Re-verify a whole frequent set (e.g. a loaded checkpoint) before
     trusting it as a partial result.  Returns the audit report; raises
     :class:`AuditError` on any violation.  ``minsup=None`` skips the
-    threshold check (checkpoints without a recorded minsup).  The JAX
-    package cross-validates canonicality on its device machine here;
-    the port runs the exact host checker."""
+    threshold check (checkpoints without a recorded minsup)."""
     a = Auditor(minsup=0 if minsup is None else int(minsup),
-                n_graphs=n_graphs, samples=samples, seed=seed)
+                n_graphs=n_graphs, samples=samples, seed=seed,
+                device_canon=True)
     a.check_levels(levels, supports, start_level=1 if minsup else 2)
     return a.report
 

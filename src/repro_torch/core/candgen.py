@@ -19,21 +19,30 @@ Candidates are *metadata* (host-side, tiny).  Each carries the join recipe
 (`Extension`) the device layer executes against partition-local occurrence
 lists.
 
-This is the host half of ``repro.core.candgen``; the device generator
-and device schedule of the whole-run loop are not ported yet.
+The device half at the end (``device_candidates``, ``device_schedule``)
+recasts the generator and the schedule as fixed-shape PyTorch programs
+for the whole-run device loop (DESIGN.md §13), the port of
+``repro.core.candgen``'s ``jnp`` twins: same candidates, same order.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
-from .dfscode import Code, Edge5, code_to_graph, is_canonical, rightmost_path
+from .dfscode import (Code, Edge5, _compact_rows, _dump_index,
+                      _gather_clamped, array_to_code,
+                      code_array_rightmost_path, code_array_vertex_labels,
+                      code_to_graph, is_canonical, min_dfs_canonical_array,
+                      rightmost_path)
 
 __all__ = ["Extension", "Candidate", "EdgeAlphabet", "generate_candidates",
            "filter_speculative", "CandidateSchedule", "schedule_candidates",
-           "pad_schedule"]
+           "pad_schedule", "device_candidates", "device_candgen",
+           "candidates_from_arrays", "device_schedule"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,3 +304,230 @@ def _pad_schedule(sched: np.ndarray, tiles: np.ndarray, inv: np.ndarray,
         inv = np.concatenate(
             [inv, np.full(pad_inv_to - inv.shape[0], park, np.int32)])
     return sched, tiles, inv
+
+
+# ---------------------------------------------------------------------------
+# Device-side candidate generation + schedule (pipeline="device_loop",
+# DESIGN.md §13) — `generate_candidates` and `schedule_candidates` recast
+# as fixed-shape PyTorch programs so the level loop can stay on device.
+# Nothing here reads a device value back: counts stay 0-dim tensors, and
+# every scatter writes a dump slot that is sliced off.
+# ---------------------------------------------------------------------------
+
+def _compact_mask(mask: torch.Tensor, cap: int):
+    """Prefix-sum compact a flat bool mask into ``cap`` index slots.
+
+    Returns (idx (cap,) int64 — flat indices of the first ``cap`` set
+    entries in order, 0-filled past ``n``; n int32; overflow)."""
+    n = mask.sum()
+    return _compact_rows(mask[None], cap)[0], n.to(torch.int32), n > cap
+
+
+def _parent_slots(codes: torch.Tensor, pvalid: torch.Tensor,
+                  triples: torch.Tensor, n_vertex_slots: int):
+    """All structural extension slots of a batch of parent codes
+    (pre-canonicality).
+
+    Slot order matches `generate_candidates` exactly: back-edge slots
+    (RMP ancestors root-first × alphabet rows) then forward slots (RMP
+    vertices root-first × alphabet rows); the triples table is the sorted
+    directed closure of the alphabet, so masking rows on the stub label
+    leaves the same sorted ``partners`` subsequence the host iterates.
+
+    Returns (ok (SP, SLOTS), edge (SP, SLOTS, 5), meta (SP, SLOTS, 4)
+    [stub, to, fwd, triple]) with SLOTS = (2·NV − 1)·T, int64."""
+    NV = n_vertex_slots
+    SP, L = codes.shape[0], codes.shape[1]
+    T = triples.shape[0]
+    dev = codes.device
+    code = codes.long()
+    valid_e = code[..., 0] >= 0
+    ne = valid_e.sum(1)
+    vl = code_array_vertex_labels(code, NV)
+    rmp, rmp_len, n_v = code_array_rightmost_path(code, NV)
+    rmv = n_v - 1
+    umin = torch.minimum(code[..., 0], code[..., 1])
+    umax = torch.maximum(code[..., 0], code[..., 1])
+    ta, te, tb = triples.long().unbind(1)
+    tidx = torch.arange(T, device=dev)
+    l_rmv = _gather_clamped(vl, rmv[:, None])[:, 0]
+    room = (pvalid & (ne < L))[:, None, None]
+
+    # ---- back-edge slots: (w_pos, t) for w_pos in [0, NV-2]
+    wb = rmp[:, :NV - 1]                                         # (SP, NV-1)
+    lb = _gather_clamped(vl, wb)
+    edge_dup = (valid_e[:, None, :] & (umin[:, None, :] == wb[..., None])
+                & (umax[:, None, :] == rmv[:, None, None])).any(2)
+    okb = ((torch.arange(NV - 1, device=dev) < rmp_len[:, None] - 1
+            )[..., None]
+           & room & (ta == l_rmv[:, None])[:, None, :]
+           & (tb == lb[..., None]) & ~edge_dup[..., None])        # (SP,NV-1,T)
+    sb = (SP, NV - 1, T)
+    bi = rmv[:, None, None].expand(sb)
+    bj = wb[..., None].expand(sb)
+    b_edge = torch.stack([bi, bj, ta.expand(sb), te.expand(sb),
+                          tb.expand(sb)], -1)
+    b_meta = torch.stack([bi, bj, torch.zeros_like(bi), tidx.expand(sb)], -1)
+
+    # ---- forward slots: (w_pos, t) for w_pos in [0, NV-1]
+    wf = rmp                                                     # (SP, NV)
+    lf = _gather_clamped(vl, wf)
+    okf = ((torch.arange(NV, device=dev) < rmp_len[:, None])[..., None]
+           & room & (n_v < NV)[:, None, None]
+           & (ta == lf[..., None]))                              # (SP,NV,T)
+    sf = (SP, NV, T)
+    fi = wf[..., None].expand(sf)
+    fj = n_v[:, None, None].expand(sf)
+    f_edge = torch.stack([fi, fj, ta.expand(sf), te.expand(sf),
+                          tb.expand(sf)], -1)
+    f_meta = torch.stack([fi, fj, torch.ones_like(fi), tidx.expand(sf)], -1)
+
+    ok = torch.cat([okb.reshape(SP, -1), okf.reshape(SP, -1)], 1)
+    edge = torch.cat([b_edge.reshape(SP, -1, 5), f_edge.reshape(SP, -1, 5)],
+                     1)
+    meta = torch.cat([b_meta.reshape(SP, -1, 4), f_meta.reshape(SP, -1, 4)],
+                     1)
+    return ok, edge, meta
+
+
+def device_candidates(codes: torch.Tensor, n_par, triples: torch.Tensor, *,
+                      n_vertex_slots: int, raw_budget: int, budget: int,
+                      max_states: int):
+    """Device twin of `generate_candidates` over array-shaped codes
+    ``(SP, L, 5)``, the first ``n_par`` (an int or a 0-dim tensor) real.
+
+    Two-stage compaction keeps the expensive canonicality machine off
+    label-mismatched slots: structural slots are prefix-sum compacted
+    into ``raw_budget`` rows first, `min_dfs_canonical_array` runs only
+    over those, and canonical survivors compact again into ``budget``
+    rows — parent-major and order-preserving, so row r is EXACTLY the
+    r-th candidate the host generator would emit.
+
+    Returns (meta (budget, 5) int32 [parent, stub, to, fwd, triple], pad
+    rows [0,0,0,1,0]; child_codes (budget, L, 5) int32 -1-padded; n_cand
+    int32; flags (3,) bool [raw overflow, canonical overflow, state
+    overflow]).  Real rows index parents below SP and triples below T."""
+    SP, L = codes.shape[0], codes.shape[1]
+    NV = n_vertex_slots
+    dev = codes.device
+    pvalid = torch.arange(SP, device=dev) < n_par
+    ok, edge, meta4 = _parent_slots(codes, pvalid, triples, NV)
+    SLOTS = ok.shape[1]
+
+    raw_idx, n_raw, raw_ovf = _compact_mask(ok.reshape(-1), raw_budget)
+    raw_real = torch.arange(raw_budget, device=dev) < n_raw
+    p_r = raw_idx // SLOTS                                       # (CBR,)
+    pcode = codes.long().index_select(0, p_r)                    # (CBR,L,5)
+    e_r = edge.reshape(-1, 5).index_select(0, raw_idx)
+    m_r = meta4.reshape(-1, 4).index_select(0, raw_idx)
+    ne_r = (pcode[..., 0] >= 0).sum(1)
+    rows = torch.arange(L, device=dev)
+    child = torch.where(rows[None, :, None] == ne_r[:, None, None],
+                        e_r[:, None, :], pcode)                  # (CBR,L,5)
+
+    canon, st_ovf = min_dfs_canonical_array(
+        child, n_vertex_slots=NV, max_states=max_states)
+
+    can_idx, n_cand, can_ovf = _compact_mask(canon & raw_real, budget)
+    can_real = (torch.arange(budget, device=dev) < n_cand)[:, None]
+    pad_row = (torch.arange(5, device=dev) == 3).long()          # [0,0,0,1,0]
+    meta = torch.where(
+        can_real,
+        torch.cat([p_r[can_idx, None], m_r.index_select(0, can_idx)], 1),
+        pad_row).to(torch.int32)
+    out_codes = torch.where(can_real[..., None],
+                            child.index_select(0, can_idx),
+                            -1).to(torch.int32)
+    flags = torch.stack([raw_ovf, can_ovf, (st_ovf & raw_real).any()])
+    return meta, out_codes, n_cand, flags
+
+
+@functools.lru_cache(maxsize=64)
+def device_candgen(L: int, n_vertex_slots: int, raw_budget: int,
+                   budget: int, max_states: int):
+    """The `device_candidates` generator built once per static config
+    (codes of width ``L``) — the counterpart of the JAX package's cached
+    ``device_candgen_jit`` for the candgen="device" stepping stone
+    (standalone, outside the whole-run loop)."""
+    def generate(codes, n_par, triples):
+        if codes.shape[1] != L:
+            raise ValueError(f"codes of width {codes.shape[1]}, the "
+                             f"generator was built for {L}")
+        return device_candidates(
+            codes, n_par, triples, n_vertex_slots=n_vertex_slots,
+            raw_budget=raw_budget, budget=budget, max_states=max_states)
+    return generate
+
+
+def candidates_from_arrays(meta: np.ndarray, child_codes: np.ndarray,
+                           n_cand: int,
+                           triples: Sequence[tuple[int, int, int]]
+                           ) -> list[Candidate]:
+    """Rebuild host `Candidate` objects from `device_candidates` output
+    (same candidates, same order)."""
+    out = []
+    for r in range(int(n_cand)):
+        p, stub, to, fwd, tri = (int(x) for x in meta[r])
+        a, e, b = triples[tri]
+        out.append(Candidate(array_to_code(child_codes[r]), p,
+                             Extension(bool(fwd), stub, to,
+                                       (int(a), int(e), int(b)))))
+    return out
+
+
+def device_schedule(meta: torch.Tensor, n_cand, *, tile_c: int,
+                    n_triples: int, rows: int):
+    """Device twin of `schedule_candidates` under fixed shapes.
+
+    Stable-sorts candidate slots by (parent, triple), sizes each group's
+    tile-aligned span with a prefix sum, and emits the same
+    (sched_meta (rows, 6) int32, tiles (rows/tile_c, 2) int32, inv (CB,)
+    int64) the fused kernel consumes, plus the overflow flag: if the
+    tile-padded row count exceeds ``rows`` the miner bails to the host
+    pipeline.  Pad rows are ``valid = 0`` and pad tiles key to parent 0
+    and triple 0; padding slots of ``inv`` park at row 0 — downstream
+    gathers mask on the real candidate count."""
+    CB = meta.shape[0]
+    tc = tile_c
+    NT = rows // tc
+    dev = meta.device
+    ar = torch.arange(CB, device=dev)
+    m = meta.long()
+    valid = ar < n_cand
+    key = m[:, 0] * n_triples + m[:, 4]
+    skey_in = torch.where(valid, key, 1 << 30)
+    order = torch.argsort(skey_in, stable=True)
+    skey = skey_in[order]
+    svalid = valid[order]
+
+    first = svalid & ((ar == 0) | (skey != torch.roll(skey, 1)))
+    gid = first.cumsum(0) - 1                        # group id per sorted row
+    n_groups = first.sum()
+    gs = torch.zeros(CB + 1, dtype=torch.int64, device=dev).scatter_add_(
+        0, _dump_index(gid, svalid, CB), torch.ones_like(gid))[:CB]
+    tpg = (gs + tc - 1) // tc                        # tiles per group
+    padded = tpg * tc
+    goff = padded.cumsum(0) - padded                 # group start sched row
+    gstart = gs.cumsum(0) - gs                       # group start sorted row
+    cg = gid.clamp(0, CB - 1)
+    srows = goff[cg] + (ar - gstart[cg])
+    ovf = padded.sum() > rows
+
+    inv = torch.empty(CB, dtype=torch.int64, device=dev).scatter_(
+        0, order, torch.where(svalid, srows.clamp(0, rows - 1), 0))
+
+    gkeys = torch.zeros(CB + 1, dtype=torch.int64, device=dev).scatter_(
+        0, _dump_index(gid, first, CB), skey)[:CB]
+    tend = tpg.cumsum(0)
+    tgid = torch.searchsorted(tend, torch.arange(NT, device=dev), right=True)
+    tkey = torch.where(tgid < n_groups, gkeys[tgid.clamp(0, CB - 1)], 0)
+    tiles = torch.stack([tkey // n_triples, tkey % n_triples], 1)
+
+    rkey = tkey[torch.arange(rows, device=dev) // tc]           # (rows,)
+    zero = torch.zeros_like(rkey)
+    sched = torch.stack([rkey // n_triples, zero, zero, zero + 1,
+                         rkey % n_triples, zero, ], 1)
+    vals = torch.cat([m[order], torch.ones_like(m[:, :1])], 1)
+    sched = torch.cat([sched, sched[:1]]).index_copy_(
+        0, _dump_index(srows, svalid, rows), vals)[:rows]
+    return (sched.to(torch.int32), tiles.to(torch.int32), inv, ovf)

@@ -65,7 +65,8 @@ from .embedding import LevelOL, materialize_one
 from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
 
 __all__ = ["LevelWire", "LevelOutputs", "PendingLevel", "dispatch_level",
-           "unpack_wire", "reassemble_wire", "wire_words",
+           "unpack_wire", "fetch_wire", "upload", "reassemble_wire",
+           "wire_words",
            "wire_cost_model", "wire_checksum", "level_program",
            "lpt_permutation", "permute_stores", "AUDIT_MONOTONIC",
            "AUDIT_COMPACT", "AUDIT_RANGE", "AUDIT_NKEEP"]
@@ -461,6 +462,14 @@ def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
     raise WireIntegrityError(
         f"level wire failed checksum {_WIRE_FETCH_ATTEMPTS}x"
         + (f" at level {level}" if level is not None else ""))
+
+
+def fetch_wire(wire_d: torch.Tensor, level: Optional[int] = None
+               ) -> np.ndarray:
+    """Fetch and verify a DENSE single-shard wire (trailing checksum
+    word), with the level wire's bounded re-fetch and chaos hook — the
+    device-loop pipeline's one run wire per chunk."""
+    return _fetch_wire(wire_d, level, 0, 1, False, None)
 
 
 def _copy_to_host(wire_d: torch.Tensor) -> np.ndarray:

@@ -14,8 +14,19 @@ Phases:
                        syncs exactly once per level, on the wire.  Repeat
                        until no frequent patterns.
 
-This is the port of ``repro.core.mining`` for ``pipeline="single_sync"``
-and ``pipeline="legacy"``.  With a multi-worker ``MiningMesh`` every
+Three pipelines (MirageConfig.pipeline), as in ``repro.core.mining``:
+  "single_sync" — the level program above, one wire fetch per level
+                  (default);
+  "device_loop" — the ENTIRE run queued on the device with no host read
+                  between levels (``core/device_loop.py``, DESIGN.md
+                  §13): device candidate generation, schedule and level
+                  compute, one wire fetch per run; bails to single_sync
+                  when a static budget overflows;
+  "legacy"      — the two-program pipeline, the differential oracle.
+``candgen="device"`` swaps the per-level host generator of the other
+pipelines for the device generator (the stepping stone to the loop).
+
+With a multi-worker ``MiningMesh`` every
 rank of its process group runs this driver on the same inputs: the host
 work (partitioning, candgen, schedule, bucket choices) is deterministic,
 so every rank takes the same decisions, and each rank holds its block
@@ -29,9 +40,7 @@ two programs: a support round (``mapreduce.map_reduce_supports``) and a
 materialize round with host round trips between them, dense, psum
 by default, no shape buckets and no device audit word — the JAX
 package's differential oracle, kept as it is.  ``MirageConfig`` keeps
-every field of the JAX package; the "device_loop" pipeline and device
-candgen are a later slice (ROADMAP queue A item 11) and raise
-``NotImplementedError``.
+every field of the JAX package.
 
 The robustness layer (DESIGN.md §10, §14) hooks the driver as in the
 JAX package: a worker-loss hook at each level start, survivor-cap
@@ -69,14 +78,17 @@ from ..runtime import faults
 from ..runtime.errors import DeviceMemoryError
 from ..runtime.sharding import partition_block
 from ..runtime.watchdog import Watchdog
+from . import device_loop as dloop
 from .auditor import Auditor
 from .buckets import BucketSpec, bucket_size, round_up_multiple
-from .candgen import (Candidate, EdgeAlphabet, filter_speculative,
+from .candgen import (Candidate, EdgeAlphabet, candidates_from_arrays,
+                      device_candgen, filter_speculative,
                       generate_candidates, schedule_candidates)
 from .dfscode import Code, array_to_code, code_to_array
 from .embedding import build_edge_ol, candidate_meta, level1_ol
 from .graphdb import Graph
-from .level_step import dispatch_level, permute_stores
+from .level_step import (_IMBAL_FX, dispatch_level, fetch_wire,
+                         permute_stores, upload)
 from .mapreduce import MiningMesh, map_materialize, map_reduce_supports
 from .partition import make_partitions
 
@@ -351,10 +363,6 @@ class Mirage:
     def __init__(self, config: MirageConfig,
                  mesh: Optional[MiningMesh] = None,
                  device: Optional[torch.device | str] = None):
-        if config.pipeline == "device_loop" or config.candgen == "device":
-            raise NotImplementedError(
-                "pipeline='device_loop' and candgen='device' are not "
-                "ported yet (ROADMAP queue A item 11)")
         check_backend(config.backend)
         self.mesh = mesh or MiningMesh.single_device()
         if self.mesh.device is not None:
@@ -375,6 +383,10 @@ class Mirage:
                                f"is not available")
         self.cfg = config
         self.backend: Backend = config.backend or default_backend(self.device)
+        # introspection for the last device-loop run: {"completed": bool,
+        # "fallback": Optional[str], ...}; None until a device_loop fit
+        # has executed
+        self.last_device_loop: Optional[dict] = None
         # per-run invariant auditor (§14); rebuilt by each fit()
         self.auditor: Optional[Auditor] = None
         self._watchdog: Optional[Watchdog] = None
@@ -529,6 +541,23 @@ class Mirage:
         # grouping
         tile_pin: Optional[int] = None
 
+        # ---- device-resident whole-run loop (DESIGN.md §13) ------------
+        if cfg.pipeline == "device_loop" and start_level < cfg.max_size:
+            try:
+                return self._mine_device_loop(
+                    alphabet, minsup, triples, eol0, levels, supports,
+                    pol, pmask, src_d, dst_d, emask_d, packed=packed,
+                    start_k=start_level, total_overflow=total_overflow,
+                    order=order)
+            except dloop.DeviceLoopFallback as bail:
+                # a static budget tripped (or the M valve hit its
+                # ceiling): replay the run through the per-level
+                # pipeline below — it has no static budgets and mines
+                # the identical frequent set
+                self.last_device_loop = {"completed": False,
+                                         "fallback": str(bail),
+                                         "chunks": 0, "escalations": 0}
+
         # ---- phase 3: iterative mining ---------------------------------
         k = start_level
         # overlapped candgen (DESIGN.md §11): each level speculatively
@@ -549,6 +578,11 @@ class Mirage:
                     expired = wd.run_expired
                 else:
                     self._check_deadline(k + 1, wd.run_expired)
+            if cands is None and cfg.candgen == "device":
+                # the stepping-stone device candgen: one device_candidates
+                # run instead of the host generator (None = a per-level
+                # budget overflow → the host generator for this level)
+                cands = self._device_candgen(levels[-1], triples)
             if cands is None:
                 cands = generate_candidates(levels[-1], alphabet)
                 if levels[-1]:
@@ -680,17 +714,19 @@ class Mirage:
         return faults.DeadlineExceeded(level, wd.elapsed(),
                                        float(wd.run_deadline_s))
 
-    def _stall_hook(self, level: Optional[int]) -> None:
-        """The chaos hook of an injected stall while the level's device
-        work is in flight; the watchdog's armed phase deadline is what
-        bounds it.  A stall fires on every rank at once, but whether the
+    def _stall_hook(self, level: Optional[int],
+                    point: str = "dispatch") -> None:
+        """The chaos hook of an injected stall while the level's (or,
+        ``point="chunk"``, the device loop's chunk's) device work is in
+        flight; the watchdog's armed phase deadline is what bounds it.
+        A stall fires on every rank at once, but whether the
         watchdog caught it is a clock reading: the ranks that stalled
         agree on it with one all-reduce, so that they all raise
         ``HangTimeout`` or all go on.  A level with no stall pays
         nothing."""
         err = None
         try:
-            fired = faults.maybe_hang("dispatch", level, self._watchdog)
+            fired = faults.maybe_hang(point, level, self._watchdog)
         except faults.HangTimeout as exc:
             fired, err = True, exc
         if fired and self.mesh.n_workers > 1:
@@ -745,8 +781,12 @@ class Mirage:
     def _sharded_wire(self) -> bool:
         """The sharded-wire tri-state: explicit config wins; auto means on
         whenever the reduce_scatter shuffle runs (at one worker the
-        sharded layout is the dense one)."""
+        sharded layout is the dense one).  The device-loop pipeline never
+        shards: its wire is the one replicated run wire, and a fallback
+        run through the level program uses the dense layout."""
         cfg = self.cfg
+        if cfg.pipeline != "single_sync":
+            return False
         if cfg.sharded_wire is not None:
             return cfg.sharded_wire
         return cfg.reduce == "reduce_scatter"
@@ -754,12 +794,13 @@ class Mirage:
     # ------------------------------------------------------------------
     def _packed_support(self, n_graphs: int) -> bool:
         """The packed-support tri-state: explicit config wins; auto means
-        on for the single-sync pipeline (the legacy pipeline stays
-        dense).  Either way packing additionally requires every global
-        support to fit uint16 (the wire ships 2 supports per 32-bit
-        word) — supports are bounded by the database's graph count."""
+        on for the single-sync and device-loop pipelines (the legacy
+        pipeline stays dense).  Either way packing additionally requires
+        every global support to fit uint16 (the wire ships 2 supports per
+        32-bit word) — supports are bounded by the database's graph
+        count."""
         cfg = self.cfg
-        if cfg.pipeline != "single_sync":
+        if cfg.pipeline not in ("single_sync", "device_loop"):
             return False
         on = (cfg.packed_support if cfg.packed_support is not None
               else True)
@@ -771,7 +812,8 @@ class Mirage:
         The legacy pipeline never buckets: it is the differential oracle
         and stays as the JAX package runs it."""
         cfg = self.cfg
-        if not cfg.bucket_shapes or cfg.pipeline != "single_sync":
+        if (not cfg.bucket_shapes
+                or cfg.pipeline not in ("single_sync", "device_loop")):
             return None
         return BucketSpec(cfg.bucket_c_floor, cfg.bucket_s_floor,
                           cfg.bucket_k_floor)
@@ -851,6 +893,260 @@ class Mirage:
         if self.device.type != "cuda":
             return None
         return self._free_device_bytes() // self.mesh.ranks_per_device
+
+    # ------------------------------------------------------------------
+    def _device_candgen(self, parents: list[Code],
+                        triples: list[tuple[int, int, int]]
+                        ) -> Optional[list[Candidate]]:
+        """Per-level device candidate generation (candgen="device"): one
+        ``device_candidates`` run on the miner's device replaces the
+        host generator, returning the SAME candidates in the SAME order.
+        Budgets default to the exact structural bound — overflow is then
+        impossible unless the config pins them tighter; any tripped flag
+        returns None and the caller regenerates on host for this level
+        only.  This stepping stone reads its results back per level."""
+        cfg = self.cfg
+        SP = len(parents)
+        if SP == 0:
+            return []
+        Lk = len(parents[0]) + 1            # child edge count
+        NV = Lk + 1                         # child vertex bound
+        T = len(triples)
+        raw_b = cfg.device_raw_budget or SP * (2 * NV - 1) * T
+        budget = cfg.device_c_budget or raw_b
+        generate = device_candgen(Lk, NV, raw_b, budget,
+                                  cfg.device_max_states)
+        codes = np.full((SP, Lk, 5), -1, np.int32)
+        for i, c in enumerate(parents):
+            codes[i] = code_to_array(c, Lk)
+        meta, child, n_cand, flags = generate(
+            upload(codes, self.device), SP,
+            upload(np.asarray(triples, np.int32), self.device))
+        if bool(flags.any()):
+            return None
+        return candidates_from_arrays(meta.cpu().numpy(),
+                                      child.cpu().numpy(), int(n_cand),
+                                      triples)
+
+    # ------------------------------------------------------------------
+    def _decode_device_run(self, rw: "dloop.RunWire", levels0, supports0,
+                           start_k: int):
+        """Decode a run wire into (levels, supports, stat rows) with the
+        host loop's exact stopping semantics: an empty candidate set
+        stops BEFORE its stats row (the host breaks at the loop head),
+        an empty frequent set stops AFTER it."""
+        levels = [list(l) for l in levels0]
+        sups = dict(supports0)
+        rows: list[tuple[int, int, int, int, float]] = []
+        for s in range(start_k - 1, rw.k_final - 1):
+            n_cand, n_keep, ovf, imb_fx = (int(x) for x in rw.stats[s, :4])
+            if n_cand == 0:
+                break
+            rows.append((s + 2, n_cand, n_keep, ovf, imb_fx / _IMBAL_FX))
+            if n_keep == 0:
+                break
+            lvl = [array_to_code(rw.codes[s, i]) for i in range(n_keep)]
+            levels.append(lvl)
+            for i, c in enumerate(lvl):
+                sups[c] = int(rw.sups[s, i])
+        return levels, sups, rows
+
+    # ------------------------------------------------------------------
+    def _device_loop_slots(self, spp: int, n_par0: int, pol: torch.Tensor,
+                           max_embeddings: int, n_vertex_slots: int, *,
+                           level: int) -> int:
+        """The device loop's parent/survivor slot count: ``spp`` (the
+        JAX package's) clamped so that the parent and child carry stores,
+        (PP, SPP, G, M, NV) each, take at most ``_STORE_MEMORY_SHARE`` of
+        the memory this rank's share of the device has free (no clamp on
+        the CPU).  The ranks take the smallest clamp of any of them, so
+        that their programs keep one shape.  When not even the start
+        level's ``n_par0`` parents fit, ``DeviceMemoryError`` is raised
+        before anything is allocated."""
+        free = self._free_device_bytes()
+        if free is None:
+            return spp
+        free //= self.mesh.ranks_per_device
+        PP, _, G = pol.shape[:3]
+        pair = 2 * PP * G * max_embeddings * (4 * n_vertex_slots + 1)
+        S = memory_survivor_cap(spp, pair, free, None)
+        if self.mesh.n_workers > 1:
+            agreed = torch.tensor([S], dtype=torch.int64, device=self.device)
+            S = int(self.mesh.all_reduce(agreed, dist.ReduceOp.MIN))
+        if S < n_par0:
+            raise DeviceMemoryError(level, n_par0, pair * n_par0, free)
+        return S
+
+    # ------------------------------------------------------------------
+    def _mine_device_loop(self, alphabet, minsup, triples, eol0, levels0,
+                          supports0, pol, pmask, src, dst, emask, *,
+                          packed: bool, start_k: int, total_overflow: int,
+                          order: np.ndarray) -> DistMiningResult:
+        """The whole run queued on the device (``core/device_loop.py``,
+        DESIGN.md §13).
+
+        Candidate generation, schedule, support counting, survivor
+        compaction and child materialization all stay on device for
+        every level; the host reads exactly ONE run wire per chunk (plus
+        the store at the optional checkpoint-chunk boundaries).  Static
+        budgets are sized once from a single host candidate generation at
+        the start level — the ONLY host candgen of a completed run; a
+        budget overflow mid-run trips a bail flag and this method raises
+        :class:`~.device_loop.DeviceLoopFallback` so the caller replays
+        through the per-level pipeline.
+
+        The exactness valve works at run granularity: the loop mines at
+        one uniform embedding cap M (the carry shape); an overflowing
+        run doubles M and reruns the whole program from the base store —
+        pre-overflow levels are bit-identical at the larger M, so the
+        rerun converges to the exact escalated host semantics.  On the
+        card the slot count SPP is clamped to the free memory after each
+        doubling (``_device_loop_slots``)."""
+        cfg = self.cfg
+        bk = self._buckets()
+        W = self.mesh.n_workers
+        backend = self.backend
+        t0 = time.perf_counter()
+        L = cfg.max_size
+        NL = L - 1
+        NV = bk.vertex_slots(L + 1)
+
+        # ---- static budgets from one host generation ------------------
+        base = generate_candidates(levels0[-1], alphabet)
+        if not base:
+            return DistMiningResult(levels0, supports0, [], alphabet,
+                                    minsup, total_overflow)
+        meta0 = candidate_meta(base, eol0)
+        C0 = meta0.shape[0]
+        CB = round_up_multiple(cfg.device_c_budget
+                               or bk.candidates(4 * C0, W), W)
+        CBR = cfg.device_raw_budget or 4 * CB
+        n_par0 = len(levels0[-1])
+        spp_full = max(bucket_size(n_par0, bk.s_floor), CB)
+        tile_c, ROWS = 1, CB
+        if is_fused_backend(backend):
+            sched0 = schedule_candidates(meta0)
+            tile_c = sched0.tile_c
+            ROWS = round_up_multiple(
+                bucket_size(max(2 * sched0.meta.shape[0], CB), bk.c_floor),
+                tile_c)
+
+        prog = dloop._run_program(
+            self.mesh, minsup, backend, cfg.reduce, packed, L, NV, CB,
+            CBR, cfg.device_max_states, NL, tile_c, ROWS, len(triples))
+        trip = upload(np.asarray(triples, np.int32), self.device)
+        M_run = int(pol.shape[3])
+        cadence = ckpt.ChunkCadence(start_k, L,
+                                    cfg.device_loop_ckpt_every)
+        step = cfg.device_loop_unroll
+        escalations = chunks = 0
+        wd = self._watchdog
+        while True:                 # run-granular escalation valve
+            SPP = self._device_loop_slots(spp_full, n_par0, pol, M_run, NV,
+                                          level=start_k + 1)
+            codes_h = np.full((SPP, L, 5), -1, np.int32)
+            for i, c in enumerate(levels0[-1]):
+                codes_h[i] = code_to_array(c, L)
+            pol0, pmask0 = _pad_store(
+                pol[:, :SPP].contiguous(), pmask[:, :SPP].contiguous(),
+                p_to=SPP, m_to=M_run, k_to=NV)
+            carry = dloop.init_carry(start_k, codes_h, pol0, pmask0, NL)
+            del pol0, pmask0
+            k_cur, escalate = start_k, False
+            for k_stop in cadence.boundaries():
+                if wd is not None:
+                    # each chunk doubles as a heartbeat: the run deadline
+                    # is checked here, and the phase deadline re-arms
+                    # over the coming chunk
+                    if wd.run_deadline_s is not None:
+                        self._check_deadline(k_stop, wd.run_expired)
+                    wd.arm(level=k_stop)
+                t_chunk = time.perf_counter()
+                for lv in range(k_cur + 1, k_stop + 1):
+                    # chaos hooks, fired host-side per window level so
+                    # fault schedules hit device-loop runs too
+                    faults.maybe_raise("level_start", lv)
+                    faults.maybe_raise("kernel", lv)
+                per_call = step if step > 0 else k_stop - k_cur
+                for k0 in range(k_cur, k_stop, per_call):
+                    wire_d, carry = prog(carry, k0,
+                                         min(per_call, k_stop - k0), trip,
+                                         src, dst, emask)
+                chunks += 1
+                # chaos hook: a stalled chunk — the armed phase deadline
+                # (and the device_loop→single_sync rung) bounds it
+                self._stall_hook(k_stop, "chunk")
+                # the chunk boundary's (only) host contact
+                rw = dloop.decode_run_wire(fetch_wire(wire_d, level=k_stop),
+                                           NL, SPP, L)
+                del wire_d
+                k_cur = k_stop
+                if wd is not None:
+                    wd.disarm(observe_s=time.perf_counter() - t_chunk)
+                if not rw.ok or rw.n_par == 0:
+                    break
+                if (rw.total_overflow > 0
+                        and M_run < cfg.max_embeddings_limit):
+                    escalate = True
+                    break
+                if cfg.checkpoint_dir and k_cur < L:
+                    levels, sups, _ = self._decode_device_run(
+                        rw, levels0, supports0, start_k)
+                    if self.auditor is not None:
+                        # a boundary save is a potential partial-result
+                        # cut point: audit the whole decoded prefix
+                        # BEFORE it reaches disk as "audited"
+                        self.auditor.check_levels(levels, sups)
+                    self._save(cfg.checkpoint_dir, k_cur, levels, sups,
+                               carry.pol, carry.pmask, M_run,
+                               total_overflow + rw.total_overflow, order)
+            if not escalate:
+                break
+            # release the run's stores before the next clamp reads the
+            # free memory
+            del carry
+            M_run = min(M_run * 2, cfg.max_embeddings_limit)
+            escalations += 1
+
+        if not rw.ok:
+            bad = int(np.bitwise_or.reduce(
+                rw.stats[:, 4].astype(np.int64)))
+            raise dloop.DeviceLoopFallback(
+                f"device loop bailed at level {rw.k_final} "
+                f"(flags=0b{bad:04b}: CB={CB} CBR={CBR} "
+                f"states={cfg.device_max_states} rows={ROWS})"
+                + (f"; survivors past the {SPP} memory-clamped slots"
+                   if bad & dloop.FLAG_SLOT_OVF else ""))
+        if rw.total_overflow > 0:
+            raise dloop.DeviceLoopFallback(
+                f"M-cap overflow {rw.total_overflow} persists at the "
+                f"max_embeddings_limit={cfg.max_embeddings_limit} ceiling")
+
+        levels, sups, rows = self._decode_device_run(
+            rw, levels0, supports0, start_k)
+        if self.auditor is not None:
+            self.auditor.check_levels(levels, sups)
+        tovf = total_overflow + rw.total_overflow
+        elapsed = time.perf_counter() - t0
+        per = elapsed / max(len(rows), 1)
+        stats = [LevelStats(lv, nc, nk, ov, per, per, False, imb,
+                            escalations if i == 0 else 0,
+                            survivor_cap=SPP)
+                 for i, (lv, nc, nk, ov, imb) in enumerate(rows)]
+        if cfg.checkpoint_dir and rw.n_par > 0:
+            # the carry store row-aligns with levels[-1] only when the
+            # run ended WITH survivors; a zero-survivor tail keeps the
+            # last boundary save instead
+            self._save(cfg.checkpoint_dir, len(levels), levels, sups,
+                       carry.pol, carry.pmask, M_run, tovf, order)
+        self.last_device_loop = {
+            "completed": True, "fallback": None, "chunks": chunks,
+            "escalations": escalations, "c_budget": CB,
+            "raw_budget": CBR, "sched_rows": ROWS, "spp": SPP,
+            "max_embeddings": M_run, "n_levels": NL, "tile_c": tile_c,
+        }
+        return DistMiningResult(levels, sups, stats, alphabet, minsup,
+                                tovf)
 
     # ------------------------------------------------------------------
     def _level_single_sync(self, meta_p, meta, C, pol, pmask, src, dst,

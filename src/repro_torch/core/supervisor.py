@@ -20,7 +20,9 @@ five recoveries:
                  two-launch backend; rung 2 abandons the single-sync
                  level for the legacy host-driven pipeline, which on the
                  card keeps the two-launch kernels and on the CPU runs
-                 the plain "ref" backend).
+                 the plain "ref" backend).  A device-loop run descends
+                 one extra rung first: ``single_sync``, the per-level
+                 program with the same kernels (:func:`ladder_for`).
   transient    → (wire checksum failures) retry with exponential
                  backoff, same configuration.
   state        → (checkpoint integrity, audit failures) retry: the
@@ -28,7 +30,8 @@ five recoveries:
                  attempt resumes from the newest *intact* one — or
                  restarts clean.
   hang         → (a watchdog-detected stalled phase) replay from the
-                 newest checkpoint.
+                 newest checkpoint; a stalled device-loop chunk descends
+                 to the ``single_sync`` rung, which syncs every level.
 
 Anything unclassified is **fatal** and re-raised untouched: a real CUDA
 build or launch error, CUDA's out-of-memory error, and
@@ -75,17 +78,23 @@ from .mining import (DistMiningResult, Mirage, MirageConfig,
                      PartialResult, decode_saved_levels)
 
 __all__ = ["SupervisorConfig", "FaultEvent", "MiningSupervisor",
-           "RetryBudget", "classify", "elastic_shrink", "shrink_mesh", "LADDER", "DEVICE_LOOP_LADDER"]
+           "RetryBudget", "classify", "elastic_shrink", "shrink_mesh",
+           "ladder_for", "LADDER", "DEVICE_LOOP_LADDER"]
 
 #: degradation-ladder rungs, most- to least-accelerated.  Each entry is
 #: the config override applied at that rung; rung 0 is "as configured".
 LADDER = ("as-configured", "pallas", "legacy")
 
 #: the device-loop pipeline descends one extra rung first: give up the
-#: whole-run loop for the per-level single-sync program.  Kept as data
-#: only: the device-loop pipeline, the choice of this ladder and its
-#: "single_sync" rung come together (ROADMAP queue A item 11)
+#: whole-run loop for the per-level single-sync program (same kernels,
+#: but a host sync — and a fresh chance — every level)
 DEVICE_LOOP_LADDER = ("as-configured", "single_sync", "pallas", "legacy")
+
+
+def ladder_for(cfg: MirageConfig) -> tuple[str, ...]:
+    """The degradation ladder the ORIGINAL config starts from."""
+    return (DEVICE_LOOP_LADDER if cfg.pipeline == "device_loop"
+            else LADDER)
 
 
 def classify(exc: BaseException) -> Optional[str]:
@@ -272,6 +281,7 @@ class MiningSupervisor:
             factor=sup.backoff_factor, cap=sup.backoff_max,
             jitter=sup.backoff_jitter, seed=sup.seed)
         kernel_faults = 0
+        ladder = ladder_for(cfg)
         try:
             while True:
                 miner = Mirage(cfg, self.mesh, self.device)
@@ -344,19 +354,33 @@ class MiningSupervisor:
                     elif kind == "kernel":
                         kernel_faults += 1
                         if (kernel_faults % sup.degrade_after == 0
-                                and self.rung < len(LADDER) - 1):
+                                and self.rung < len(ladder) - 1):
                             self.rung += 1
-                            cfg = _degrade(cfg, LADDER[self.rung],
+                            cfg = _degrade(cfg, ladder[self.rung],
                                            miner.device)
                             action = "degrade"
                             detail = (f"descend ladder to rung "
                                       f"{self.rung} "
-                                      f"({LADDER[self.rung]})")
+                                      f"({ladder[self.rung]})")
                     elif kind == "hang":
                         waited = getattr(exc, "waited_s", 0.0)
-                        detail = (f"stalled phase detected after "
-                                  f"{waited:.2f}s — replay from newest "
-                                  f"checkpoint")
+                        if (cfg.pipeline == "device_loop"
+                                and self.rung < len(ladder) - 1):
+                            # a stalled chunk forfeits the whole-run
+                            # loop: the single-sync rung re-syncs every
+                            # level, bounding any future stall
+                            self.rung = max(self.rung, 1)
+                            cfg = _degrade(cfg, ladder[self.rung],
+                                           miner.device)
+                            action = "degrade"
+                            detail = (f"stalled device_loop chunk "
+                                      f"(detected after {waited:.2f}s) — "
+                                      f"descend to "
+                                      f"{ladder[self.rung]}")
+                        else:
+                            detail = (f"stalled phase detected after "
+                                      f"{waited:.2f}s — replay from "
+                                      f"newest checkpoint")
                     elif kind == "state":
                         detail = ("corrupt or audit-failed state — "
                                   "resume from newest intact audited "
@@ -463,18 +487,25 @@ def _degrade(cfg: MirageConfig, rung: str,
     """Config override for a degradation-ladder rung, by rung NAME, for
     a miner on ``device``.
 
-    "pallas" keeps the current pipeline but drops the fused
-    single-launch kernel for the two-launch backend: on the card the
-    hand-written join and reduction kernels, on the CPU their plain
-    versions.  "legacy" falls back to the host-driven pipeline, dense
-    as the differential oracle: on the card it keeps the two-launch
-    kernels, so no descent leaves the card's kernels for plain PyTorch;
-    on the CPU it runs the "ref" backend, as the JAX package does.
+    "single_sync" abandons the whole-run device loop for the per-level
+    program (same kernels and shapes, one sync per level).  "pallas"
+    keeps the current pipeline (single-sync in place of the device
+    loop) but drops the fused single-launch kernel for the two-launch
+    backend: on the card the hand-written join and reduction kernels, on
+    the CPU their plain versions.  "legacy" falls back to the
+    host-driven pipeline, dense as the differential oracle: on the card
+    it keeps the two-launch kernels, so no descent leaves the card's
+    kernels for plain PyTorch; on the CPU it runs the "ref" backend, as
+    the JAX package does.
     """
     if rung == "as-configured":
         return cfg
+    if rung == "single_sync":
+        return dataclasses.replace(cfg, pipeline="single_sync")
     if rung == "pallas":
-        return dataclasses.replace(cfg, backend="pallas")
+        pipeline = ("single_sync" if cfg.pipeline == "device_loop"
+                    else cfg.pipeline)
+        return dataclasses.replace(cfg, pipeline=pipeline, backend="pallas")
     if rung == "legacy":
         backend = "pallas" if torch.device(device).type == "cuda" else "ref"
         return dataclasses.replace(cfg, pipeline="legacy", backend=backend,

@@ -1,5 +1,5 @@
-"""Mining launcher of the PyTorch port (single-sync or legacy pipeline,
-one device).
+"""Mining launcher of the PyTorch port (single-sync, device-loop or
+legacy pipeline, one device).
 
     python -m repro_torch.launch.mine --dataset pubchem-like \
         --n-graphs 40000 --avg-edges 28 --minsup 0.15 --partitions 8 \
@@ -10,6 +10,8 @@ one device).
         --n-graphs 10 --minsup 4 --partitions 2 --max-size 5 --seed 5 \
         --device cpu --fault-schedule 'kernel_fault@3*2;wire_bitflip@4' \
         --fault-log faults.jsonl
+    python -m repro_torch.launch.mine --dataset paper-toy --minsup 2 \
+        --partitions 2 --max-size 4 --pipeline device_loop --device cpu
 
 Runs on the CUDA device by default; ``--device cpu`` runs the plain
 PyTorch versions of the kernels instead.  Any of ``--fault-schedule``,
@@ -46,10 +48,34 @@ def main() -> None:
                     help="shuffle collective (default: reduce_scatter for "
                          "single_sync, psum for legacy)")
     ap.add_argument("--pipeline", default="single_sync",
-                    choices=["single_sync", "legacy"],
+                    choices=["single_sync", "device_loop", "legacy"],
                     help="single_sync: one device program and one host "
-                         "transfer per level; legacy: the two-program "
-                         "pipeline (the differential oracle)")
+                         "transfer per level; device_loop: the ENTIRE "
+                         "run queued on the device with a single "
+                         "device->host transfer (needs --max-size); "
+                         "legacy: the two-program pipeline (the "
+                         "differential oracle)")
+    ap.add_argument("--candgen", default="host",
+                    choices=["host", "device"],
+                    help="candidate generation for the per-level "
+                         "pipelines: host python generator (default) or "
+                         "the device generator (the device_loop "
+                         "stepping stone)")
+    ap.add_argument("--device-c-budget", type=int, default=None,
+                    help="device_loop: canonical candidate budget per "
+                         "level (default: auto-sized)")
+    ap.add_argument("--device-raw-budget", type=int, default=None,
+                    help="device_loop: structural slot budget before "
+                         "canonicality (default: 4x the c-budget)")
+    ap.add_argument("--device-max-states", type=int, default=64,
+                    help="device canonicality machine state bound")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="device_loop: checkpoint-chunk cadence in "
+                         "levels (default: no mid-run checkpoints — "
+                         "exactly one transfer per run)")
+    ap.add_argument("--unroll", type=int, default=0,
+                    help="device_loop: >0 queues the run's level bodies "
+                         "in calls of this many")
     ap.add_argument("--dense-wire", action="store_true",
                     help="disable the sharded wire layout")
     ap.add_argument("--no-overlap", action="store_true",
@@ -123,7 +149,12 @@ def main() -> None:
         max_size=args.max_size, max_embeddings=args.max_embeddings,
         reduce=args.reduce, backend=args.backend, pipeline=args.pipeline,
         sharded_wire=False if args.dense_wire else None,
-        overlap_candgen=not args.no_overlap,
+        overlap_candgen=not args.no_overlap, candgen=args.candgen,
+        device_c_budget=args.device_c_budget,
+        device_raw_budget=args.device_raw_budget,
+        device_max_states=args.device_max_states,
+        device_loop_ckpt_every=args.ckpt_every,
+        device_loop_unroll=args.unroll,
         checkpoint_dir=args.ckpt_dir,
         bucket_shapes=not args.no_bucket,
         audit=not args.no_audit, **bucket_kw)
@@ -159,6 +190,13 @@ def main() -> None:
         else:
             miner = Mirage(cfg, device=args.device)
             res = miner.fit(graphs, resume=args.resume)
+            if miner.last_device_loop is not None:
+                info = miner.last_device_loop
+                print(f"[mine] device_loop: completed={info['completed']} "
+                      f"chunks={info['chunks']} "
+                      f"escalations={info['escalations']}"
+                      + (f" fallback={info['fallback']}"
+                         if info["fallback"] else ""))
     except GraphValidationError as exc:
         # a malformed database is an input bug, not a crash: diagnose
         # (graph id + edge index) on stderr, no traceback

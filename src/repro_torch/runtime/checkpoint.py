@@ -55,7 +55,8 @@ from . import faults
 from .errors import CheckpointIntegrityError
 
 __all__ = ["save_pytree", "load_pytree", "latest_step", "save_step",
-           "load_step", "all_steps", "CheckpointIntegrityError"]
+           "load_step", "all_steps", "ChunkCadence",
+           "CheckpointIntegrityError"]
 
 _LEAF = "__leaf__"
 _STEP_RE = re.compile(r"^step_(\d+)$")
@@ -171,6 +172,44 @@ def load_pytree(path: str, *, verify: bool = True) -> tuple[Any, dict]:
                     f"(stored {want[:12]}…, loaded {got[:12]}…)")
     tree = _decode(manifest["skeleton"], leaves)
     return tree, manifest["metadata"]
+
+
+class ChunkCadence:
+    """Checkpoint cadence for the device-resident run loop (DESIGN.md
+    §13).  The whole-run program checkpoints by RE-INVOCATION: it runs to
+    a nearer ``k_stop`` (a chunk) and the host persists state at each
+    boundary — "every ``every`` levels, or on loop exit" when ``every``
+    is None.  Centralizing the boundary arithmetic keeps the miner and
+    its tests agreed on how many boundaries (and therefore how many
+    device→host fetches) a run performs: ``1`` wire fetch without
+    mid-run checkpoints, at most ``3·n_chunks`` fetches (wire + OL store
+    + mask per boundary) with them."""
+
+    def __init__(self, start: int, stop: int, every: Optional[int] = None):
+        if stop < start:
+            raise ValueError(f"cadence stop={stop} before start={start}")
+        self.start = start
+        self.stop = stop
+        self.every = (every if every and every > 0
+                      else max(stop - start, 1))
+
+    def boundaries(self) -> list[int]:
+        """Every chunk's ``k_stop``, in order; the last is ``stop``."""
+        out, k = [], self.start
+        while k < self.stop:
+            k = min(k + self.every, self.stop)
+            out.append(k)
+        return out
+
+    @property
+    def n_chunks(self) -> int:
+        return len(self.boundaries())
+
+    def max_fetches(self) -> int:
+        """Residency budget: one wire fetch per chunk plus the two
+        store fetches of each NON-final boundary's checkpoint."""
+        n = self.n_chunks
+        return n + 2 * max(n - 1, 0)
 
 
 def save_step(root: str, step: int, tree: Any, *,

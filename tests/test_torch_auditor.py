@@ -211,10 +211,31 @@ def test_overhead_model_upload_scales_with_parents_not_candidates():
 
 
 def test_device_canonicality_waits_for_the_device_loop_slice():
-    """The exact host checker answers; the device array machine is not
-    ported yet and says where it comes (ROADMAP queue A item 11)."""
-    assert _is_canonical(CHILD) is True
-    assert _is_canonical(NON_CANON) is False
-    assert _is_canonical(PARENT) is True
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _is_canonical(CHILD, device=True)
+    """The device-loop slice has come: ``device=True`` answers on the
+    bounded array machine, as the exact host checker does."""
+    for code, want in ((CHILD, True), (NON_CANON, False), (PARENT, True)):
+        assert _is_canonical(code) is want
+        assert _is_canonical(code, device=True) is want
+
+
+def test_device_canonicality_matches_host_checker_and_jax():
+    """``_is_canonical(device=True)`` over the frequent codes of a seeded
+    DB and every rightmost extension of them (canonical or not) agrees
+    with the host checker and with the JAX package's device answer; a
+    code past the machine's 31 edges is inconclusive (None)."""
+    graphs = random_db(10, n_vertices=6, extra_edge_prob=0.4, n_vlabels=3,
+                       n_elabels=2, seed=1)
+    codes = list(mine_host(graphs, 2, max_size=4).frequent)
+    grown = []
+    for code in codes:
+        n_v = max(max(e[0], e[1]) for e in code) + 1
+        for w in dfscode.rightmost_path(code):
+            for lab in (0, 1, 2):
+                grown.append(code + ((w, n_v, code[0][2], 0, lab),))
+    pile = codes + grown
+    got = [_is_canonical(c, device=True) for c in pile]
+    assert got == [_is_canonical(c) for c in pile]
+    assert True in got and False in got
+    assert got == [jauditor._is_canonical(c, device=True) for c in pile]
+    path = tuple((i, i + 1, 0, 0, 0) for i in range(32))
+    assert _is_canonical(path, device=True) is None

@@ -6,12 +6,13 @@ schedules, stalls caught by the watchdog — supervised mining completes
 with the frequent set of the JAX package's host oracle ``mine_host``,
 bit for bit, or, when a deadline or the retry budget runs out, returns a
 verified prefix of it.  The schedules are ``tests/test_chaos.py``'s,
-minus those of the device-loop pipeline (ROADMAP queue A item 11) and
-those of donation re-arming, which has no subject in the port (eager
-PyTorch never consumes the parent store).  Several ranks run as gloo
-processes (``torch_ranks.run``): the W=2→1 and W=4→2 shrinks, and a
-stall and a run deadline at W=2, which end on both ranks with no
-blocked collective."""
+the device-loop pipeline's included (a run-wire bit-flip storm, kernel
+faults and a stalled chunk, which descend its extra ``single_sync``
+rung), minus those of donation re-arming, which has no subject in the
+port (eager PyTorch never consumes the parent store).  Several ranks
+run as gloo processes (``torch_ranks.run``): the W=2→1 and W=4→2
+shrinks (and the device loop's W=2→1), and a stall and a run deadline
+at W=2, which end on both ranks with no blocked collective."""
 import os
 
 import pytest
@@ -21,7 +22,9 @@ from repro.core.host_miner import mine_host
 from repro_torch.core import level_step as tlevel_step
 from repro_torch.core.graphdb import random_db
 from repro_torch.core.mining import Mirage, MirageConfig, PartialResult
-from repro_torch.core.supervisor import MiningSupervisor, SupervisorConfig
+from repro_torch.core.supervisor import (DEVICE_LOOP_LADDER, LADDER,
+                                         MiningSupervisor, SupervisorConfig,
+                                         ladder_for)
 from repro_torch.runtime import checkpoint as ckpt
 from repro_torch.runtime import faults
 from repro_torch.runtime.watchdog import Watchdog
@@ -261,6 +264,73 @@ def test_hang_replays_from_checkpoint(tmp_path, pipeline):
     assert res.stats[0].level == 3
 
 
+# ---------------------------------------------------------------------------
+# the device-loop pipeline under the same fault kinds, pinned to the
+# oracle through its device_loop→single_sync supervisor rung
+# ---------------------------------------------------------------------------
+
+def _dl(**kw):
+    kw.setdefault("pipeline", "device_loop")
+    kw.setdefault("device_loop_ckpt_every", 1)
+    return kw
+
+
+def test_device_loop_ladder_has_the_single_sync_rung():
+    assert ladder_for(_cfg(pipeline="device_loop")) == DEVICE_LOOP_LADDER
+    assert ladder_for(_cfg()) == LADDER
+    assert DEVICE_LOOP_LADDER[1] == "single_sync"
+
+
+def test_device_loop_run_wire_bitflip_storm_retries(tmp_path):
+    """Corruption on all 3 fetch attempts of one chunk's run wire
+    surfaces as a transient fault; the supervisor's retry resumes from
+    the chunk-boundary checkpoint and ends bit-identical."""
+    res, sup = _supervised("wire_bitflip@3*3",
+                           ckpt_dir=str(tmp_path / "ck"), **_dl())
+    assert_parity(res)
+    assert [e.kind for e in sup.events] == ["transient"]
+    assert len(faults.injection_log()) == 3
+
+
+def test_device_loop_kernel_fault_descends_to_single_sync(tmp_path):
+    """Repeated kernel faults inside the run window walk the EXTRA
+    device-loop rung first: abandon the whole-run loop for the
+    per-level single-sync program."""
+    res, sup = _supervised("kernel_fault@3*2",
+                           ckpt_dir=str(tmp_path / "ck"), **_dl())
+    assert_parity(res)
+    assert sup.rung == 1                        # single_sync rung
+    assert [(e.kind, e.action) for e in sup.events] == [
+        ("kernel", "retry"), ("kernel", "degrade")]
+    assert "single_sync" in sup.events[-1].detail
+    assert sup.last_miner.cfg.pipeline == "single_sync"
+
+
+def test_device_loop_kernel_faults_walk_the_whole_ladder(tmp_path):
+    """Enough kernel faults walk device_loop → single_sync → pallas."""
+    res, sup = _supervised("kernel_fault@2*4", backend="fused",
+                           ckpt_dir=str(tmp_path / "ck"), **_dl())
+    assert_parity(res)
+    rungs = [e.detail for e in sup.events if e.action == "degrade"]
+    assert "single_sync" in rungs[0] and "pallas" in rungs[1]
+    assert (sup.last_miner.cfg.pipeline, sup.last_miner.backend) == (
+        "single_sync", "pallas")
+
+
+def test_device_loop_stalled_chunk_degrades_to_single_sync(tmp_path):
+    """An injected mid-chunk stall trips the armed phase deadline; the
+    hang forfeits the whole-run loop for the per-level program, which
+    bounds any future stall to one level — and stays exact."""
+    res, sup = _supervised(
+        "hang@3:secs=999", ckpt_dir=str(tmp_path / "ck"),
+        watchdog=Watchdog(phase_default=2.0), **_dl())
+    assert_parity(res)
+    assert sup.rung >= 1
+    assert [(e.kind, e.action) for e in sup.events] == [
+        ("hang", "degrade")]
+    assert sup.watchdog.trips                   # detection was the trip
+
+
 def test_unwatched_stall_rides_out():
     faults.install(faults.FaultSchedule.parse("hang@3:secs=0.05"))
     res = Mirage(_cfg(), device="cpu").fit(DB)
@@ -402,6 +472,39 @@ def test_worker_loss_on_several_ranks_shrinks(tmp_path, world):
         else:
             assert got["events"] == [("worker_loss", "retire", 3)]
             assert "supports" not in got
+
+
+DL_SHRINK = RANK_PROLOGUE + """
+faults.install(faults.FaultSchedule.parse("worker_loss@3"))
+sup = MiningSupervisor(
+    MirageConfig(minsup=5, n_partitions=4, max_size=5,
+                 pipeline="device_loop", device_loop_ckpt_every=1,
+                 checkpoint_dir=CK),
+    SupervisorConfig(sleep_fn=lambda s: None), mesh=MESH)
+res = sup.mine(graphs)
+RESULT["events"] = [(e.kind, e.action, e.level) for e in sup.events]
+RESULT["details"] = [e.detail for e in sup.events]
+if res is not None:
+    RESULT["supports"] = sorted(res.supports.items())
+    RESULT["info"] = sup.last_miner.last_device_loop
+"""
+
+
+def test_device_loop_worker_loss_on_two_ranks_shrinks(tmp_path):
+    """The whole-run pipeline under worker loss at W=2 (the JAX
+    package's ``DL_SHRINK_SNIPPET``): the loss fires at the level-3
+    chunk on both ranks, rank 1 retires, and rank 0 resumes the device
+    loop alone from the level-2 chunk checkpoint, equal to
+    ``mine_host``."""
+    ranks, _ = run(tmp_path, ranks=(DL_SHRINK, 2), args=[tmp_path / "ck"],
+                   timeout=240)
+    r0, r1 = ranks
+    assert r0["events"] == [("worker_loss", "shrink", 3)]
+    assert "1 worker" in r0["details"][0]
+    assert r0["supports"] == _oracle()
+    assert r0["info"]["completed"] and r0["info"]["chunks"] == 3
+    assert r1["events"] == [("worker_loss", "retire", 3)]
+    assert "supports" not in r1
 
 
 HANG_AND_DEADLINE = RANK_PROLOGUE + """

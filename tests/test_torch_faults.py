@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import mining as jmining
 from repro.core import supervisor as jsupervisor
 from repro.runtime import faults as jfaults
 from repro_torch.core import supervisor as sup_mod
@@ -222,8 +223,19 @@ def test_degradation_rungs():
     legacy = sup_mod._degrade(cfg, "legacy", cpu)
     assert (legacy.pipeline, legacy.backend, legacy.packed_support) == (
         "legacy", "ref", None)
-    with pytest.raises(ValueError, match="single_sync"):
-        sup_mod._degrade(cfg, "single_sync", cpu)
+    # the device loop's extra rung: the per-level program, same kernels;
+    # its "pallas" rung leaves the device loop too, as the JAX package's
+    dl = MirageConfig(minsup=2, max_size=4, backend="fused",
+                      pipeline="device_loop")
+    single = sup_mod._degrade(dl, "single_sync", cpu)
+    assert (single.pipeline, single.backend) == ("single_sync", "fused")
+    assert (sup_mod._degrade(dl, "pallas", cpu).pipeline,
+            jsupervisor._degrade(jmining.MirageConfig(
+                minsup=2, max_size=4, backend="fused",
+                pipeline="device_loop"), "pallas").pipeline) == (
+        "single_sync", "single_sync")
+    with pytest.raises(ValueError, match="unknown ladder rung"):
+        sup_mod._degrade(cfg, "quantum", cpu)
 
 
 @pytest.mark.parametrize("backend", ["fused", "fused_packed", "pallas"])

@@ -171,8 +171,16 @@ def test_entry_point_runs_on_the_card_unless_asked_for_cpu():
     (dict(candgen="device"), "item 11"),
 ])
 def test_later_slices_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tmining.Mirage(tmining.MirageConfig(minsup=2, **kw), device="cpu")
+    """The device loop and device candgen (ROADMAP queue A ``item``)
+    have landed: they no longer raise, and mine paper-toy equal to
+    ``mine_host``.  The JAX package's interpret-mode backends still
+    raise: the port runs the kernels' plain versions instead."""
+    miner = tmining.Mirage(tmining.MirageConfig(minsup=2, **kw),
+                           device="cpu")
+    got = miner.fit(tgraphdb.paper_toy_db())
+    want = mine_host(jgraphdb.paper_toy_db(), 2, max_size=kw.get("max_size"))
+    assert got.supports == {c: i.support for c, i in want.frequent.items()}
+    assert (miner.last_device_loop is not None) == ("max_size" in kw), item
     with pytest.raises(ValueError, match="'interpret' is not available"):
         tmining.Mirage(tmining.MirageConfig(minsup=2, backend="interpret"),
                        device="cpu")

@@ -85,6 +85,27 @@ is present, or when the port is not next to it.  Phases:
                spent on slots past the survivors), and one more body
                with no parents left, on its final carry, times a level
                past the fixpoint.
+ 12. examples — ``examples/quickstart_torch.py`` on the card (the toy
+               DB's 13 patterns and a 60-graph molecule-like DB against
+               ``mine_host``, kernel launches counted from 0), then
+               ``examples/mine_distributed_torch.py --workers 2``: two
+               gloo ranks on cuda:0 under ``torch.distributed.run``, a
+               run cut at level 2 and a resumed run whose levels equal
+               ``mine_host``'s;
+ 13. serving — the LM serving path (no kernel of the miner: its
+               attention and matmuls are PyTorch ops, as they are
+               ``jnp`` code in the JAX package), in a process of its
+               own: ``examples/serve_lm_torch.py --full`` serves
+               qwen2.5-14b at its published width and depth (48 layers,
+               bf16, random weights from a seeded generator) to 4
+               requests of 16 prompt and 24 generated tokens, twice,
+               with identical tokens, timed with CUDA events (prefill,
+               decode per token) beside its weight bytes and peak
+               memory; cached decode against a re-forward of the prefix
+               at full width cut to 2 layers in float32 (tolerance 2e-4
+               of max(1, max |logit|)); the four dense smoke configs on
+               the card against the CPU on the same weights, float32
+               (tolerance 1e-4).
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -1832,6 +1853,266 @@ def phase_nccl() -> None:
         f"({time.perf_counter() - t0:.1f}s)")
 
 
+# ---------------------------------------------------------------------------
+# the examples and the LM serving path
+# ---------------------------------------------------------------------------
+
+EXAMPLE_CKPT = ROOT / "build" / "chip_smoke_example_ckpt"
+# the mine_distributed example's DB and config (examples/*_torch.py)
+EXAMPLE_DB = ("pubchem_like_db", (("n_graphs", 64), ("seed", 11),
+                                  ("avg_edges", 14)))
+EXAMPLE_MINSUP, EXAMPLE_MAX_SIZE = 8, 5     # ceil(0.12 * 64)
+DENSE_ARCHS = ("qwen2.5-14b", "granite-20b", "minicpm-2b", "gemma2-2b")
+SERVE_ARCH = "qwen2.5-14b"
+SERVE_TIMEOUT = 600
+
+
+def load_example(name: str):
+    """The module of ``examples/<name>.py``."""
+    import importlib.util
+    use_src()
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> None:
+    """Phase 12: ``quickstart_torch.py`` on the card (its own asserts,
+    kernel launches counted from 0), then ``mine_distributed_torch.py``
+    with two ranks on the one card (gloo): run 1 cut at level 2, run 2
+    resumed from its checkpoint, equal to ``mine_host``."""
+    import os
+    quickstart = load_example("quickstart_torch")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = quickstart.main(["--device", "cuda"])
+    launches = launch_counts()
+    secs = time.perf_counter() - t0
+    check(launches["fused_level_packed"] > 0,
+          f"phase 12 quickstart: kernel launches {launches}")
+    say(f"phase 12 quickstart: the toy DB's 13 patterns and the 60-graph "
+        f"DB ({res.counts()}) on the card equal mine_host; kernel launches "
+        f"{launches} ({secs:.1f}s)")
+
+    from repro_torch.core.host_miner import mine_host
+    want = [len(l) for l in mine_host(make_graphs(EXAMPLE_DB),
+                                      EXAMPLE_MINSUP,
+                                      max_size=EXAMPLE_MAX_SIZE).levels]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "mine_distributed_torch.py"),
+         "--workers", "2", "--device", "cuda", "--ckpt-dir",
+         str(EXAMPLE_CKPT), "--timeout", "240", "--group-timeout", "120"],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(SRC)})
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        say(f"phase 12 mine_distributed | {line}")
+    check(proc.returncode == 0,
+          f"phase 12 mine_distributed exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    check(proc.stdout.count("backend gloo, device cuda:0") == 4,
+          "phase 12 mine_distributed: not 2 gloo ranks on cuda:0 per run")
+    levels = [l for l in proc.stdout.splitlines() if l.startswith("LEVELS:")]
+    check(len(levels) == 2 and levels[-1] == f"LEVELS: {want}"
+          and "resumed run equals mine_host" in proc.stdout,
+          f"phase 12 mine_distributed: levels {levels}, mine_host {want}")
+    say(f"phase 12 mine_distributed: 2 gloo ranks on cuda:0, run 1 cut at "
+        f"level 2 ({levels[0][8:]}), run 2 resumed to {levels[1][8:]} = "
+        f"mine_host ({secs:.1f}s)")
+
+
+def _rel_err(want, got) -> float:
+    """max |got - want| / max(1, max |want|), in float32."""
+    want, got = want.float().cpu(), got.float().cpu()
+    return float((got - want).abs().max() / max(1.0, float(
+        want.abs().max())))
+
+
+def profile_decode(cfg, steps: int = 8) -> dict:
+    """Where a decode step's time goes: ``steps`` greedy decode steps of
+    ``cfg`` (4 requests, after a 16-token prefill and 2 warm-up steps)
+    under ``torch.profiler``, against the host's clock around them (the
+    device synchronized at both ends).  Returns the wall ms, the summed
+    device time of the kernels the profiler saw and their count, both
+    per step (the kernels of one stream do not overlap)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import registry as reg
+    fns = reg.build(cfg, device="cuda")
+    model = fns["init"](torch.Generator("cuda").manual_seed(0))
+    P = 16
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, (4, P)), device="cuda")
+    logits, cache = fns["prefill"](model, {"tokens": toks},
+                                   max_len=P + 2 + steps)
+    tok = logits[:, -1].argmax(-1)
+
+    def step(pos):
+        nonlocal logits, cache, tok
+        logits, cache = fns["decode"](model, cache, {"tokens": tok[:, None]},
+                                      pos)
+        tok = logits[:, -1].argmax(-1)
+
+    for pos in (P, P + 1):
+        step(pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for pos in range(P + 2, P + 2 + steps):
+            step(pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return {"steps": steps, "wall_ms": wall_ms / steps,
+            "device_ms": busy_us / 1e3 / steps,
+            "kernels": len(kernels) / steps}
+
+
+def serving_child(out: str) -> None:
+    """Phase 13's work, in a process of its own (so the card's memory is
+    the serving path's alone): qwen2.5-14b at full width and depth
+    through ``serve_lm_torch.main`` twice; cached decode against a full
+    re-forward at full width, 2 layers, float32; the four dense smoke
+    configs on the card against the CPU, float32.  Writes its results to
+    ``out`` (pickle)."""
+    use_src()
+    import dataclasses
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    from repro_torch.models.transformer import LM
+    serve = load_example("serve_lm_torch")
+    res = {"runs": []}
+    for _ in range(2):
+        gen, stats = serve.main(["--arch", SERVE_ARCH, "--full",
+                                 "--device", "cuda"])
+        res["runs"].append((gen, stats))
+        torch.cuda.empty_cache()
+    full = reg.get_config(SERVE_ARCH)
+    res["params"] = reg.count_params(full)
+    res["profile"] = profile_decode(full)
+    torch.cuda.empty_cache()
+
+    # cached decode against a re-forward of the whole prefix, 8 steps
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+    fns = reg.build(cfg, device="cuda")
+    model = fns["init"](torch.Generator("cuda").manual_seed(1))
+    P, G = 16, 8
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab, (4, P + G)), device="cuda")
+    _, cache = fns["prefill"](model, {"tokens": toks[:, :P]}, max_len=P + G)
+    errs = []
+    for t in range(G):
+        dec, cache = fns["decode"](model, cache,
+                                   {"tokens": toks[:, P + t:P + t + 1]},
+                                   P + t)
+        ref, _ = fns["prefill"](model, {"tokens": toks[:, :P + t + 1]})
+        errs.append(_rel_err(ref[:, -1], dec[:, 0]))
+    res["decode_vs_forward"] = errs
+    del model, cache, dec, ref
+    torch.cuda.empty_cache()
+
+    # the smoke configs: the same weights and tokens on the card and CPU
+    res["card_vs_cpu"] = {}
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(reg.get_smoke_config(arch),
+                                  dtype="float32")
+        cpu, gpu = reg.build(cfg, device="cpu"), reg.build(cfg, device="cuda")
+        host = cpu["init"](torch.Generator().manual_seed(2))
+        card = LM(cfg, device="meta").to_empty(device="cuda")
+        card.load_state_dict(host.state_dict())
+        toks = torch.as_tensor(np.random.default_rng(4).integers(
+            1, cfg.vocab, (4, P)))
+        a, ca = cpu["prefill"](host, {"tokens": toks}, max_len=P + G)
+        b, cb = gpu["prefill"](card, {"tokens": toks}, max_len=P + G)
+        errs, same = [], 0
+        for t in range(G + 1):
+            errs.append(_rel_err(a[:, -1], b[:, -1]))
+            tok = a[:, -1].argmax(-1)
+            same += int(torch.equal(tok, b[:, -1].argmax(-1).cpu()))
+            if t == G:
+                break
+            a, ca = cpu["decode"](host, ca, {"tokens": tok[:, None]}, P + t)
+            b, cb = gpu["decode"](card, cb, {"tokens": tok[:, None]}, P + t)
+        res["card_vs_cpu"][arch] = (max(errs), same, G + 1)
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_serving(card: str) -> None:
+    """Phase 13: the LM serving path (no kernel of the miner: the dense
+    decoder's attention and matmuls are PyTorch ops, as they are ``jnp``
+    in the JAX package), in a spawned process, timed out and killed
+    after ``SERVE_TIMEOUT`` seconds."""
+    import multiprocessing
+    import pickle
+    import numpy as np
+    import torch
+    torch.cuda.empty_cache()
+    say(f"phase 13 serving: the miner's process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    RANK_DIR.mkdir(parents=True, exist_ok=True)
+    out = RANK_DIR / "phase13.pkl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=serving_child, args=(str(out),))
+    proc.start()
+    proc.join(SERVE_TIMEOUT)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+        check(False, f"phase 13: still running after {SERVE_TIMEOUT}s")
+    check(proc.exitcode == 0, f"phase 13: exit code {proc.exitcode}")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    secs = time.perf_counter() - t0
+    (g1, s1), (g2, s2) = res["runs"]
+    check(g1.shape == (4, 24) and ((g1 >= 0) & (g1 < 152_064)).all()
+          and s1["logits_finite"] and s2["logits_finite"],
+          f"phase 13: generations {g1.shape}, finite "
+          f"{s1['logits_finite']}/{s2['logits_finite']}")
+    check(np.array_equal(g1, g2), "phase 13: the two serves' tokens differ")
+    for i, s in enumerate((s1, s2)):
+        say(f"phase 13 serving {SERVE_ARCH} full width, 48 layers, bf16 "
+            f"({card}), serve {i + 1}: 4 requests x 16 prompt + 24 "
+            f"generated tokens; weights {s['weight_bytes']} bytes "
+            f"({res['params']} parameters), init {s['init_s']:.2f}s, "
+            f"prefill {s['prefill_ms']:.3f} ms, decode "
+            f"{s['decode_ms_per_token']:.3f} ms/token (CUDA events), peak "
+            f"{s['peak_bytes'] / 1e9:.2f} GB; reading the weights once "
+            f"takes {s['weight_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    say(f"phase 13 serving: the two serves' tokens are identical; req 0 -> "
+        f"{g1[0][:12].tolist()}")
+    prof = res["profile"]
+    say(f"phase 13 decode under torch.profiler ({card}): "
+        f"{prof['steps']} steps of 4 requests, {prof['wall_ms']:.3f} ms a "
+        f"step on the host's clock, of which the device's kernels "
+        f"{prof['device_ms']:.3f} ms ({prof['kernels']:.0f} kernels a "
+        f"step; busy share {prof['device_ms'] / prof['wall_ms']:.3f})")
+    errs = res["decode_vs_forward"]
+    check(max(errs) <= 2e-4,
+          f"phase 13: cached decode against re-forward, errors {errs}")
+    say(f"phase 13 decode = re-forward: {SERVE_ARCH} full width, 2 layers, "
+        f"float32, 8 cached steps against a re-forward of the prefix: max "
+        f"|diff| / max(1, max |logit|) = {max(errs):.3g} (tolerance 2e-4)")
+    for arch, (err, same, n) in res["card_vs_cpu"].items():
+        check(err <= 1e-4, f"phase 13: {arch} card against CPU {err}")
+        say(f"phase 13 card = CPU: {arch} smoke config, float32, prefill + "
+            f"8 decode steps: max rel err {err:.3g} (tolerance 1e-4), "
+            f"greedy tokens equal at {same} of {n} steps")
+    say(f"phase 13 serving: {secs:.1f}s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1915,6 +2196,8 @@ def main() -> int:
         phase_multiworker_shrink()
         phase_multiworker_main(want40)
         phase_nccl()
+        phase_examples()
+        phase_serving(card)
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1

@@ -1,0 +1,224 @@
+"""Attention in plain PyTorch, the counterpart of
+``repro.models.attention``: the GQA layer (bias, softcap, sliding
+window) with its train, prefill and decode modes.
+
+Scores and softmax run in float32 as in the JAX package.  A masked
+score is ``NEG_INF`` (a large finite number, not ``-inf``), so a row
+with every key masked gives the uniform average the JAX code gives, not
+NaN.  Long sequences run the online-softmax chunked attention, short
+ones and decode the materializing one (``mha``'s dispatch rule).
+
+Cache contract (per layer): ``{"k": (B, T, Kv, dh), "v": (B, T, Kv,
+dh)}``.  Decode writes the new keys and values into the caller's cache
+in place at ``cache_pos`` and attends over ``kv_len = cache_pos + S``.
+
+MLA (ROADMAP A13b) and cross-attention (A13d) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .common import (apply_rope, cdtype, dense_init, project, rope_table,
+                     softcap)
+
+__all__ = ["NEG_INF", "Attention", "chunked_mha", "plain_mha", "mha",
+           "mla"]
+
+NEG_INF = -2.0 ** 30
+
+
+def _block_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                window: Optional[int], kv_len) -> torch.Tensor:
+    """(qc, kc) bool mask for a block given absolute positions."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        m &= q_pos[:, None] - k_pos[None, :] < window
+    if kv_len is not None:
+        m &= k_pos[None, :] < kv_len
+    return m
+
+
+def plain_mha(q, k, v, *, scale, causal=False, window=None, cap=None,
+              q_offset=0, kv_len=None):
+    """Materializing attention — decode / short-sequence path.
+    q: (B, S, H, D), k/v: (B, T, Kv, Dv)."""
+    B, S, H, D = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    rep = H // Kv
+    qg = q.reshape(B, S, Kv, rep, D)
+    s = torch.einsum("bskrd,btkd->bkrst", qg.float(), k.float()) * scale
+    s = softcap(s, cap)
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    mask = _block_mask(q_pos, torch.arange(T, device=q.device),
+                       causal=causal, window=window, kv_len=kv_len)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrst,btkd->bskrd", p, v.float())
+    return o.reshape(B, S, H, v.shape[-1]).to(q.dtype)
+
+
+def chunked_mha(q, k, v, *, scale, causal=True, window=None, cap=None,
+                q_offset=0, q_chunk=512, kv_chunk=1024, schedule="full"):
+    """Online-softmax attention over KV chunks: O(qc·kc) live scores.
+
+    ``schedule``: "full" visits every kv block and masks the blocks
+    above the diagonal; "tri" (causal, no window, T == S) visits only
+    the blocks up to the diagonal, as the JAX ``fori_loop`` does."""
+    B, S, H, D = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    rep = H // Kv
+    qc = min(q_chunk, S)
+    kc = min(kv_chunk, T)
+    if S % qc or T % kc:
+        raise ValueError(f"chunks ({qc}, {kc}) do not divide ({S}, {T})")
+    nq, nk = S // qc, T // kc
+    qb = q.reshape(B, nq, qc, Kv, rep, D)
+    kb = k.reshape(B, nk, kc, Kv, D)
+    vb = v.reshape(B, nk, kc, Kv, Dv)
+    tri = schedule == "tri" and causal and window is None and T == S
+    blocks = []
+    for qi in range(nq):
+        qblk = qb[:, qi].float()
+        q_pos = q_offset + qi * qc + torch.arange(qc, device=q.device)
+        m = torch.full((B, Kv, rep, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Kv, rep, qc), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Kv, rep, qc, Dv), dtype=torch.float32,
+                          device=q.device)
+        for kj in range(qi + 1 if tri else nk):
+            k_pos = kj * kc + torch.arange(kc, device=q.device)
+            s = torch.einsum("bqkrd,btkd->bkrqt", qblk,
+                             kb[:, kj].float()) * scale
+            s = softcap(s, cap)
+            msk = _block_mask(q_pos, k_pos, causal=causal, window=window,
+                              kv_len=None)
+            s = torch.where(msk, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            r = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * r + p.sum(-1)
+            acc = acc * r[..., None] + torch.einsum(
+                "bkrqt,btkd->bkrqd", p, vb[:, kj].float())
+            m = m_new
+        blocks.append(acc / torch.clamp_min(l[..., None], 1e-37))
+    # (nq, B, Kv, rep, qc, Dv) -> (B, S, H, Dv)
+    o = torch.stack(blocks).permute(1, 0, 4, 2, 3, 5).reshape(B, S, H, Dv)
+    return o.to(q.dtype)
+
+
+def mha(q, k, v, *, scale, causal, window, cap, q_offset=0, kv_len=None,
+        q_chunk=512, kv_chunk=1024, schedule="full"):
+    """Dispatch: chunked for long sequences, plain for short/decode."""
+    S, T = q.shape[1], k.shape[1]
+    if S <= q_chunk or S % q_chunk or T % kv_chunk:
+        return plain_mha(q, k, v, scale=scale, causal=causal, window=window,
+                         cap=cap, q_offset=q_offset, kv_len=kv_len)
+    return chunked_mha(q, k, v, scale=scale, causal=causal, window=window,
+                       cap=cap, q_offset=q_offset, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk, schedule=schedule)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Attention(nn.Module):
+    """The GQA layer: ``wq`` (d, H, dh), ``wk``/``wv`` (d, Kv, dh), ``wo``
+    (H, dh, d) in the compute dtype; ``bq``/``bk``/``bv`` in float32."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        dh, dt = cfg.head_dim, cdtype(cfg)
+
+        def init(shape):
+            return _param(dense_init(shape, generator=generator,
+                                     device=device, dtype=dt))
+
+        self.wq = init((cfg.d_model, cfg.n_heads, dh))
+        self.wk = init((cfg.d_model, cfg.n_kv, dh))
+        self.wv = init((cfg.d_model, cfg.n_kv, dh))
+        self.wo = init((cfg.n_heads, dh, cfg.d_model))
+        if cfg.qkv_bias:
+            for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv),
+                                ("bv", cfg.n_kv)):
+                setattr(self, name, _param(torch.zeros(
+                    (heads, dh), dtype=torch.float32, device=device)))
+
+    def forward(self, x, *, layer_local: bool = False,
+                cache: Optional[dict] = None, cache_pos: Optional[int] = None,
+                make_cache: bool = False, max_len: Optional[int] = None):
+        """Modes: train (``cache=None``) -> (y, None); prefill
+        (``make_cache``) -> (y, cache of ``max_len`` positions, default
+        S, the first S written); decode (``cache`` + ``cache_pos``) ->
+        (y, the same cache, written at ``cache_pos``)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        dh = cfg.head_dim
+        dt = x.dtype
+        scale = 1.0 / np.sqrt(dh)
+        schedule = getattr(cfg, "attn_schedule", "full")
+
+        q = project(x, self.wq.to(dt))
+        if cfg.qkv_bias:
+            q = q + self.bq.to(dt)
+        base = 0 if cache_pos is None else cache_pos
+        positions = (base + torch.arange(S, device=x.device))[None, :]
+        sin, cos = rope_table(positions.expand(B, S), dh, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = project(x, self.wk.to(dt))
+        v = project(x, self.wv.to(dt))
+        if cfg.qkv_bias:
+            k, v = k + self.bk.to(dt), v + self.bv.to(dt)
+        k = apply_rope(k, sin, cos)
+
+        window = cfg.sliding_window if layer_local else None
+
+        if cache is None:
+            o = mha(q, k, v, scale=scale, causal=True, window=window,
+                    cap=cfg.attn_softcap, schedule=schedule)
+            new_cache = None
+            if make_cache:
+                new_cache = init_layer_cache(cfg, B, max_len or S, k.dtype,
+                                             x.device)
+                new_cache["k"][:, :S] = k
+                new_cache["v"][:, :S] = v
+        else:
+            # decode: write new k/v at cache_pos, attend over the prefix
+            ck, cv = cache["k"], cache["v"]
+            if cache_pos + S > ck.shape[1]:
+                raise ValueError(f"decode at {cache_pos} of {S} tokens past "
+                                 f"a cache of {ck.shape[1]}")
+            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+            o = plain_mha(q, ck, cv, scale=scale, causal=True, window=window,
+                          cap=cfg.attn_softcap, q_offset=cache_pos,
+                          kv_len=cache_pos + S)
+            new_cache = cache
+
+        y = project(o.reshape(B, S, -1),
+                    self.wo.to(dt).reshape(-1, cfg.d_model))
+        return y, new_cache
+
+
+def init_layer_cache(cfg, batch: int, max_len: int, dtype,
+                     device) -> dict:
+    """One attention layer's zero cache of ``max_len`` positions."""
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def mla(*args, **kwargs):
+    """deepseek-v2's latent-cache attention: not ported yet."""
+    raise NotImplementedError("MLA attention is ROADMAP A13b (MoE + MLA "
+                              "serving), not ported yet")

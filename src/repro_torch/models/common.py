@@ -1,0 +1,95 @@
+"""Shared model building blocks in plain PyTorch, the counterparts of
+``repro.models.common``.
+
+The JAX package stores every weight in float32 and casts it to the
+compute dtype at each use.  Serving never updates a weight, so the
+port's modules hold the matmul weights in the compute dtype once (the
+same values the cast gives at each use) and keep the norm scales and
+biases in float32, cast exactly where the JAX code casts them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["cdtype", "dense_init", "norm_init", "project", "rmsnorm",
+           "rope_table", "apply_rope", "softcap"]
+
+
+def cdtype(cfg) -> torch.dtype:
+    """The compute dtype ``cfg.dtype`` names ("bfloat16", "float32")."""
+    return getattr(torch, cfg.dtype)
+
+
+def dense_init(shape, *, generator: Optional[torch.Generator],
+               device, dtype=torch.float32,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Truncated-normal fan-in init (maxtext-style): a standard normal
+    cut to [-2, 2] times ``scale`` or 1/sqrt(fan_in), drawn in float32
+    from ``generator`` and then cast to ``dtype``.  On the ``meta``
+    device nothing is drawn (shapes only)."""
+    shape = tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    fan_in = shape[0] if len(shape) > 1 else shape[-1]
+    std = scale if scale is not None else 1.0 / np.sqrt(fan_in)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(std).to(dtype)
+
+
+def norm_init(d: int, device) -> torch.Tensor:
+    """A norm's float32 scale of ones."""
+    return torch.ones((d,), dtype=torch.float32, device=device)
+
+
+def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...d,d...->...", x, w)``: x (..., d) times a weight whose
+    first axis is d, as one matmul over the weight's other axes."""
+    y = x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6,
+            zero_centered: bool = False) -> torch.Tensor:
+    """RMS norm computed in float32 and cast back to ``x``'s dtype;
+    ``zero_centered`` scales by ``1 + scale`` (gemma)."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    if zero_centered:
+        scale = 1.0 + scale
+    return (y * scale).to(dt)
+
+
+def rope_table(positions: torch.Tensor, dim: int, theta: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sin, cos) tables for ``positions`` (..., S) -> (..., S, dim/2),
+    the frequencies in float32."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32,
+                        device=positions.device) / dim
+    freqs = 1.0 / (theta ** exps)
+    angles = positions[..., None].float() * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+               ) -> torch.Tensor:
+    """Rotate-half rope.  x: (..., S, H, D); sin/cos: (..., S, D/2),
+    broadcast over the heads; computed in float32, cast back."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    s, c = sin[..., None, :], cos[..., None, :]
+    if s.ndim < x1.ndim:  # (S, D/2) -> broadcast batch
+        s, c = s[None], c[None]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma2 logit soft-capping, cap * tanh(x / cap), in float32."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)

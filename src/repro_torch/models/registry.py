@@ -1,0 +1,149 @@
+"""Architecture registry in plain PyTorch, the counterpart of
+``repro.models.registry``: ``--arch <id>`` -> config + model functions.
+
+``build(cfg, device=)`` returns the serving function set of the dense
+decoder family:
+    init(generator) -> model                              [random init]
+    prefill(model, batch, max_len=None) -> (logits, cache)
+    decode(model, cache, batch, pos) -> (logits, cache)
+
+The loss (``loss_fn``) is ROADMAP A13e; the other families are later
+slices of A13 and raise, naming theirs.  ``params_from_jax`` loads the
+JAX package's parameters (as numpy arrays) into the port's modules, so
+that the two can be held against each other on the same weights.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .transformer import LM, block_specs, not_ported
+
+ARCHS = [
+    "whisper_base", "zamba2_2p7b", "granite_20b", "gemma2_2b", "minicpm_2b",
+    "qwen2p5_14b", "deepseek_v2_lite", "phi3p5_moe", "xlstm_1p3b",
+    "qwen2_vl_72b",
+]
+
+_ALIASES = {
+    "whisper-base": "whisper_base", "zamba2-2.7b": "zamba2_2p7b",
+    "granite-20b": "granite_20b", "gemma2-2b": "gemma2_2b",
+    "minicpm-2b": "minicpm_2b", "qwen2.5-14b": "qwen2p5_14b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite",
+    "phi3.5-moe-42b-a6.6b": "phi3p5_moe", "xlstm-1.3b": "xlstm_1p3b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+}
+
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "build",
+           "count_params", "list_archs", "params_from_jax", "resolve_device"]
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)
+
+
+def _module(name: str):
+    name = _ALIASES.get(name, name).replace("-", "_").replace(".", "p")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str):
+    return _module(name).smoke_config()
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another; raises when CUDA is asked for and there is none."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{device} requested but CUDA is not available; pass "
+            f"device='cpu' to run on the CPU")
+    return device
+
+
+# ---------------------------------------------------------------------------
+
+def count_params(cfg, active_only: bool = False) -> int:
+    """Exact parameter count from the model's parameter shapes on the
+    ``meta`` device (nothing is allocated).  The dense family has no
+    experts, so ``active_only`` counts the same."""
+    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+
+
+def params_from_jax(cfg, tree, *, device) -> LM:
+    """The port's model holding the JAX ``init_lm`` parameters ``tree``
+    (numpy arrays, or anything ``np.asarray`` takes): each ``group_{gi}``
+    leaf's leading ``(repeat,)`` axis is unstacked into the blocks.  The
+    matmul weights are held in ``cfg.dtype``, cast from the float32
+    masters as the JAX code casts them at each use; norm scales and
+    biases stay float32."""
+    model = LM(cfg, device="meta").to_empty(device=device)
+    want = dict(model.named_parameters())
+    got = {}
+
+    def walk(prefix, node, index=None):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "scale":       # a norm: {"scale": (d,)}
+                    walk(prefix, v, index)
+                else:
+                    walk(f"{prefix}.{k}" if prefix else k, v, index)
+        elif prefix not in want:
+            raise KeyError(f"JAX parameter {prefix} has no counterpart")
+        else:
+            arr = np.asarray(node)
+            got[prefix] = arr if index is None else arr[index]
+
+    groups = {}
+    for key, node in tree.items():
+        if key.startswith("group_"):
+            groups[int(key[len("group_"):])] = node
+        else:
+            walk(key, node)
+    for i, (gi, r, li, _, _) in enumerate(block_specs(cfg)):
+        walk(f"layers.{i}", groups[gi][li], r)
+    missing = sorted(set(want) - set(got))
+    if missing:
+        raise KeyError(f"no JAX parameter for {missing}")
+    with torch.no_grad():
+        for name, p in want.items():
+            src = torch.from_numpy(np.array(got[name]))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: JAX shape {tuple(src.shape)}, "
+                                 f"port {tuple(p.shape)}")
+            p.copy_(src.to(p.dtype))
+    return model
+
+
+# ---------------------------------------------------------------------------
+
+def build(cfg, device=None) -> dict[str, Callable]:
+    """The serving functions of ``cfg`` on ``device`` (the card unless
+    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``."""
+    if cfg.family != "dense":
+        raise not_ported(cfg.family)
+    device = resolve_device(device)
+
+    def init(generator: Optional[torch.Generator]) -> LM:
+        return LM(cfg, device=device, generator=generator)
+
+    @torch.no_grad()
+    def prefill(model, batch, max_len: Optional[int] = None):
+        return model(batch["tokens"].to(device), make_cache=True,
+                     max_len=max_len,
+                     last_logit_only=(cfg.prefill_logits == "last"))
+
+    @torch.no_grad()
+    def decode(model, cache, batch, pos: int):
+        return model(batch["tokens"].to(device), cache=cache,
+                     cache_pos=pos)
+
+    return {"init": init, "prefill": prefill, "decode": decode}

@@ -1,0 +1,207 @@
+"""Model assembly in plain PyTorch, the counterpart of
+``repro.models.transformer``, for the dense decoder family (qwen2.5,
+granite, minicpm and gemma2's alternating local/global attention).
+
+The JAX package scans each group of sub-layers ``repeat`` times over
+stacked parameters.  Eager PyTorch has nothing to gain from a scan, so
+the port unrolls the groups into one list of blocks in execution order
+(group by group, repeat by repeat, sub-layer by sub-layer) and keeps one
+cache per block.  ``repro_torch.models.registry.params_from_jax`` maps
+the stacked JAX parameters onto these blocks.
+
+The other families' mixers and feed-forwards are later slices of
+ROADMAP A13 and raise, naming theirs.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .attention import Attention
+from .common import cdtype, dense_init, norm_init, rmsnorm, softcap
+from .mlp import MLP
+
+__all__ = ["GroupSpec", "arch_groups", "Block", "LM", "LATER"]
+
+# what each family, mixer or feed-forward the port lacks waits for
+LATER = {
+    "moe": "A13b (MoE + MLA serving)", "mla": "A13b (MoE + MLA serving)",
+    "ssm": "A13c (SSM / hybrid / xLSTM serving)",
+    "hybrid": "A13c (SSM / hybrid / xLSTM serving)",
+    "mamba": "A13c (SSM / hybrid / xLSTM serving)",
+    "mlstm": "A13c (SSM / hybrid / xLSTM serving)",
+    "slstm": "A13c (SSM / hybrid / xLSTM serving)",
+    "shared_attn": "A13c (SSM / hybrid / xLSTM serving)",
+    "encdec": "A13d (encoder-decoder and VLM serving)",
+    "audio": "A13d (encoder-decoder and VLM serving)",
+    "vlm": "A13d (encoder-decoder and VLM serving)",
+    "cross_attn": "A13d (encoder-decoder and VLM serving)",
+}
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is ROADMAP {LATER[what]}, not "
+                               f"ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    unit: tuple[tuple[str, str], ...]   # ((mixer, ffn), ...) per sub-layer
+    repeat: int
+
+
+def arch_groups(cfg) -> list[GroupSpec]:
+    fam = cfg.family
+    L = cfg.n_layers
+    if fam in ("dense", "vlm"):
+        if cfg.local_global:
+            assert L % 2 == 0
+            return [GroupSpec((("attn_local", "mlp"), ("attn", "mlp")),
+                              L // 2)]
+        return [GroupSpec((("attn", "mlp"),), L)]
+    if fam == "moe":
+        mixer = "mla" if cfg.mla else "attn"
+        groups = []
+        if cfg.first_dense:
+            groups.append(GroupSpec(((mixer, "mlp"),), cfg.first_dense))
+        groups.append(GroupSpec(((mixer, "moe"),), L - cfg.first_dense))
+        return groups
+    if fam == "ssm":   # xlstm
+        if cfg.slstm_every:
+            e = cfg.slstm_every
+            assert L % e == 0
+            unit = tuple(("mlstm", "none") for _ in range(e - 1))
+            unit += (("slstm", "none"),)
+            return [GroupSpec(unit, L // e)]
+        return [GroupSpec((("mlstm", "none"),), L)]
+    if fam == "hybrid":  # zamba2
+        e = cfg.hybrid_attn_every
+        assert e and L % e == 0
+        unit = tuple(("mamba", "none") for _ in range(e))
+        unit += (("shared_attn", "mlp"),)
+        return [GroupSpec(unit, L // e)]
+    if fam in ("encdec", "audio"):
+        # decoder-side groups (self-attn -> cross-attn -> mlp);
+        # the encoder stack is assembled by encdec.py
+        return [GroupSpec((("attn", "none"), ("cross_attn", "mlp")), L)]
+    raise ValueError(f"unknown family {fam}")
+
+
+def block_specs(cfg) -> list[tuple[int, int, int, str, str]]:
+    """(group, repeat, sub-layer, mixer, ffn) of every block, in
+    execution order."""
+    return [(gi, r, li, m, f)
+            for gi, g in enumerate(arch_groups(cfg))
+            for r in range(g.repeat)
+            for li, (m, f) in enumerate(g.unit)]
+
+
+def _norm(cfg, device) -> nn.Parameter:
+    return nn.Parameter(norm_init(cfg.d_model, device), requires_grad=False)
+
+
+class Block(nn.Module):
+    """One sub-layer: ``ln1`` → mixer (→ ``post_ln1``) → residual, then
+    ``ln2`` → MLP (→ ``post_ln2``) → residual.  Norm scales in float32."""
+
+    def __init__(self, cfg, mixer: str, ffn: str, *, device,
+                 generator=None):
+        super().__init__()
+        if mixer not in ("attn", "attn_local"):
+            raise not_ported(mixer)
+        if ffn not in ("mlp", "none"):
+            raise not_ported(ffn)
+        self.cfg, self.mixer, self.ffn = cfg, mixer, ffn
+        self.ln1 = _norm(cfg, device)
+        self.attn = Attention(cfg, device=device, generator=generator)
+        if ffn != "none":
+            self.ln2 = _norm(cfg, device)
+            self.mlp = MLP(cfg, device=device, generator=generator)
+        if cfg.post_norms:
+            self.post_ln1 = _norm(cfg, device)
+            if ffn != "none":
+                self.post_ln2 = _norm(cfg, device)
+
+    def forward(self, x, *, cache=None, cache_pos=None, make_cache=False,
+                max_len=None):
+        cfg = self.cfg
+        h = rmsnorm(self.ln1, x, eps=cfg.norm_eps,
+                    zero_centered=cfg.post_norms)
+        y, new_cache = self.attn(
+            h, layer_local=(self.mixer == "attn_local"), cache=cache,
+            cache_pos=cache_pos, make_cache=make_cache, max_len=max_len)
+        if cfg.post_norms:
+            y = rmsnorm(self.post_ln1, y, eps=cfg.norm_eps,
+                        zero_centered=True)
+        x = x + y
+        if self.ffn != "none":
+            h = rmsnorm(self.ln2, x, eps=cfg.norm_eps,
+                        zero_centered=cfg.post_norms)
+            y = self.mlp(h)
+            if cfg.post_norms:
+                y = rmsnorm(self.post_ln2, y, eps=cfg.norm_eps,
+                            zero_centered=True)
+            x = x + y
+        return x, new_cache
+
+
+class LM(nn.Module):
+    """The decoder (``init_lm`` and ``forward_lm`` of the JAX package):
+    ``embed`` (V, d) and ``lm_head`` (d, V, untied only) in the compute
+    dtype, ``final_norm`` in float32, and ``layers`` in execution order.
+    Each tensor is drawn from ``generator`` in float32 and cast before
+    the next is drawn, so at most one float32 tensor lives at a time.
+    On the ``meta`` device nothing is allocated."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise not_ported(cfg.family)
+        self.cfg = cfg
+        dt = cdtype(cfg)
+        self.embed = nn.Parameter(dense_init(
+            (cfg.vocab, cfg.d_model), generator=generator, device=device,
+            dtype=dt, scale=0.02), requires_grad=False)
+        self.final_norm = _norm(cfg, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(dense_init(
+                (cfg.d_model, cfg.vocab), generator=generator,
+                device=device, dtype=dt), requires_grad=False)
+        self.layers = nn.ModuleList(
+            Block(cfg, m, f, device=device, generator=generator)
+            for (_, _, _, m, f) in block_specs(cfg))
+
+    def forward(self, tokens, *, cache=None, cache_pos=None,
+                make_cache=False, max_len=None, last_logit_only=False):
+        """Returns (logits, caches): the caches are a list, one per
+        block, when ``make_cache`` (prefill, each of ``max_len``
+        positions) or ``cache`` (decode at ``cache_pos``, written in
+        place) is given, else None.  The dense family has no auxiliary
+        loss."""
+        cfg = self.cfg
+        dt = cdtype(cfg)
+        x = F.embedding(tokens, self.embed).to(dt)
+        if cfg.post_norms:  # gemma-style input scaling, the factor in dt
+            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
+                                 device=x.device)
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            x, nc = layer(x, cache=cache[i] if cache is not None else None,
+                          cache_pos=cache_pos,
+                          make_cache=make_cache or cache is not None,
+                          max_len=max_len)
+            new_caches.append(nc)
+        if last_logit_only:
+            # serving prefill: only the final position's logits are
+            # needed — slice BEFORE the head matmul
+            x = x[:, -1:]
+        x = rmsnorm(self.final_norm, x, eps=cfg.norm_eps,
+                    zero_centered=cfg.post_norms)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        logits = softcap(x @ head.to(dt), cfg.final_softcap)
+        return logits, (new_caches if (cache is not None or make_cache)
+                        else None)

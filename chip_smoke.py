@@ -106,6 +106,22 @@ is present, or when the port is not next to it.  Phases:
                of max(1, max |logit|)); the four dense smoke configs on
                the card against the CPU on the same weights, float32
                (tolerance 1e-4).
+ 14. serving-moe — the mixture-of-experts family (routing, both
+               dispatches, the experts' products and MLA are PyTorch
+               ops, as they are ``jnp`` in the JAX package), in a process
+               of its own: deepseek-v2-lite at its published width and
+               depth (27 layers, MLA, 64 routed experts top-6 + 2 shared,
+               bf16, float32 routers) through ``serve_lm_torch.py
+               --full``, and phi3.5-moe at full width with its depth cut
+               to 8 of 32 layers (its 83.75 GB of bf16 weights do not fit
+               the card), each serving 4 requests of 16 prompt and 24
+               generated tokens twice, with identical tokens, timed as in
+               phase 13; deepseek's decode under ``torch.profiler``;
+               cached decode against a re-forward at deepseek's full
+               width cut to 2 layers (1 dense + 1 MoE), float32, at
+               capacity factor E/k so that no pair is dropped (tolerance
+               2e-4); both MoE smoke configs with each ``moe_impl`` on
+               the card against the CPU, float32 (tolerance 1e-4).
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -1865,6 +1881,10 @@ EXAMPLE_MINSUP, EXAMPLE_MAX_SIZE = 8, 5     # ceil(0.12 * 64)
 DENSE_ARCHS = ("qwen2.5-14b", "granite-20b", "minicpm-2b", "gemma2-2b")
 SERVE_ARCH = "qwen2.5-14b"
 SERVE_TIMEOUT = 600
+MOE_ARCH = "deepseek-v2-lite-16b"          # full width and depth
+MOE_CUT_ARCH = "phi3.5-moe-42b-a6.6b"      # full width, depth cut
+MOE_CUT_LAYERS = 8
+MOE_TIMEOUT = 300
 
 
 def load_example(name: str):
@@ -1975,6 +1995,61 @@ def profile_decode(cfg, steps: int = 8) -> dict:
             "kernels": len(kernels) / steps}
 
 
+def decode_vs_forward(cfg, seed: int = 1, P: int = 16,
+                      G: int = 8) -> list[float]:
+    """Cached decode against a re-forward of the whole prefix on the
+    card: 4 requests, ``P`` prompt tokens, then ``G`` steps each fed the
+    next token of a seeded sequence (``cfg``'s own dtype, random weights
+    from ``seed``); each step's relative error."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    fns = reg.build(cfg, device="cuda")
+    model = fns["init"](torch.Generator("cuda").manual_seed(seed))
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        1, cfg.vocab, (4, P + G)), device="cuda")
+    _, cache = fns["prefill"](model, {"tokens": toks[:, :P]}, max_len=P + G)
+    errs = []
+    for t in range(G):
+        dec, cache = fns["decode"](model, cache,
+                                   {"tokens": toks[:, P + t:P + t + 1]},
+                                   P + t)
+        ref, _ = fns["prefill"](model, {"tokens": toks[:, :P + t + 1]})
+        errs.append(_rel_err(ref[:, -1], dec[:, 0]))
+    del model, cache
+    torch.cuda.empty_cache()
+    return errs
+
+
+def card_vs_cpu(cfg, P: int = 16, G: int = 8) -> tuple[float, int, int]:
+    """The same weights and tokens on the card and on the CPU: prefill
+    of 4 requests and ``G`` greedy decode steps fed the CPU's tokens.
+    Returns the largest relative error of the last logits, and at how
+    many of the ``G + 1`` steps the greedy tokens agreed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    from repro_torch.models.transformer import LM
+    cpu, gpu = reg.build(cfg, device="cpu"), reg.build(cfg, device="cuda")
+    host = cpu["init"](torch.Generator().manual_seed(2))
+    card = LM(cfg, device="meta").to_empty(device="cuda")
+    card.load_state_dict(host.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab, (4, P)))
+    a, ca = cpu["prefill"](host, {"tokens": toks}, max_len=P + G)
+    b, cb = gpu["prefill"](card, {"tokens": toks}, max_len=P + G)
+    errs, same = [], 0
+    for t in range(G + 1):
+        errs.append(_rel_err(a[:, -1], b[:, -1]))
+        tok = a[:, -1].argmax(-1)
+        same += int(torch.equal(tok, b[:, -1].argmax(-1).cpu()))
+        if t == G:
+            break
+        a, ca = cpu["decode"](host, ca, {"tokens": tok[:, None]}, P + t)
+        b, cb = gpu["decode"](card, cb, {"tokens": tok[:, None]}, P + t)
+    return max(errs), same, G + 1
+
+
 def serving_child(out: str) -> None:
     """Phase 13's work, in a process of its own (so the card's memory is
     the serving path's alone): qwen2.5-14b at full width and depth
@@ -1985,10 +2060,8 @@ def serving_child(out: str) -> None:
     use_src()
     import dataclasses
     import pickle
-    import numpy as np
     import torch
     from repro_torch.models import registry as reg
-    from repro_torch.models.transformer import LM
     serve = load_example("serve_lm_torch")
     res = {"runs": []}
     for _ in range(2):
@@ -2000,51 +2073,116 @@ def serving_child(out: str) -> None:
     res["params"] = reg.count_params(full)
     res["profile"] = profile_decode(full)
     torch.cuda.empty_cache()
-
-    # cached decode against a re-forward of the whole prefix, 8 steps
-    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
-    fns = reg.build(cfg, device="cuda")
-    model = fns["init"](torch.Generator("cuda").manual_seed(1))
-    P, G = 16, 8
-    toks = torch.as_tensor(np.random.default_rng(3).integers(
-        1, cfg.vocab, (4, P + G)), device="cuda")
-    _, cache = fns["prefill"](model, {"tokens": toks[:, :P]}, max_len=P + G)
-    errs = []
-    for t in range(G):
-        dec, cache = fns["decode"](model, cache,
-                                   {"tokens": toks[:, P + t:P + t + 1]},
-                                   P + t)
-        ref, _ = fns["prefill"](model, {"tokens": toks[:, :P + t + 1]})
-        errs.append(_rel_err(ref[:, -1], dec[:, 0]))
-    res["decode_vs_forward"] = errs
-    del model, cache, dec, ref
-    torch.cuda.empty_cache()
-
-    # the smoke configs: the same weights and tokens on the card and CPU
-    res["card_vs_cpu"] = {}
-    for arch in DENSE_ARCHS:
-        cfg = dataclasses.replace(reg.get_smoke_config(arch),
-                                  dtype="float32")
-        cpu, gpu = reg.build(cfg, device="cpu"), reg.build(cfg, device="cuda")
-        host = cpu["init"](torch.Generator().manual_seed(2))
-        card = LM(cfg, device="meta").to_empty(device="cuda")
-        card.load_state_dict(host.state_dict())
-        toks = torch.as_tensor(np.random.default_rng(4).integers(
-            1, cfg.vocab, (4, P)))
-        a, ca = cpu["prefill"](host, {"tokens": toks}, max_len=P + G)
-        b, cb = gpu["prefill"](card, {"tokens": toks}, max_len=P + G)
-        errs, same = [], 0
-        for t in range(G + 1):
-            errs.append(_rel_err(a[:, -1], b[:, -1]))
-            tok = a[:, -1].argmax(-1)
-            same += int(torch.equal(tok, b[:, -1].argmax(-1).cpu()))
-            if t == G:
-                break
-            a, ca = cpu["decode"](host, ca, {"tokens": tok[:, None]}, P + t)
-            b, cb = gpu["decode"](card, cb, {"tokens": tok[:, None]}, P + t)
-        res["card_vs_cpu"][arch] = (max(errs), same, G + 1)
+    res["decode_vs_forward"] = decode_vs_forward(
+        dataclasses.replace(full, n_layers=2, dtype="float32"))
+    res["card_vs_cpu"] = {arch: card_vs_cpu(dataclasses.replace(
+        reg.get_smoke_config(arch), dtype="float32"))
+        for arch in DENSE_ARCHS}
     with open(out, "wb") as f:
         pickle.dump(res, f)
+
+
+def serving_moe_child(out: str) -> None:
+    """Phase 14's work, in a process of its own: deepseek-v2-lite at full
+    width and depth through ``serve_lm_torch.main`` twice; phi3.5-moe at
+    full width cut to ``MOE_CUT_LAYERS`` layers through
+    ``serve_lm_torch.serve`` twice (the example's prompts); a profile of
+    deepseek's decode; cached decode against a re-forward at deepseek's
+    full width, 1 dense + 1 MoE layer, float32, at capacity factor E/k;
+    both MoE smoke configs with each ``moe_impl`` on the card against
+    the CPU, float32.  Writes its results to ``out`` (pickle)."""
+    use_src()
+    import dataclasses
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    serve = load_example("serve_lm_torch")
+    res = {}
+    deep = reg.get_config(MOE_ARCH)
+    cut = dataclasses.replace(reg.get_config(MOE_CUT_ARCH),
+                              n_layers=MOE_CUT_LAYERS)
+    prompts = np.random.default_rng(0).integers(1, cut.vocab, (4, 16))
+    for cfg, run in ((deep, lambda: serve.main(
+            ["--arch", MOE_ARCH, "--full", "--device", "cuda"])),
+            (cut, lambda: serve.serve(cut, prompts, 24, device="cuda"))):
+        runs = []
+        for _ in range(2):
+            runs.append(run())
+            torch.cuda.empty_cache()
+        full = reg.get_config(cfg.name)
+        res[cfg.name] = {"runs": runs, "vocab": cfg.vocab,
+                         "layers": cfg.n_layers, "of": full.n_layers,
+                         "full_params": reg.count_params(full),
+                         "params": reg.count_params(cfg),
+                         "active": reg.count_params(cfg, active_only=True)}
+    res["profile"] = profile_decode(deep)
+    torch.cuda.empty_cache()
+    # no drops: at cf 1.25 a re-forward of S + 1 tokens has another
+    # capacity, and drops other pairs, than the cached step
+    res["decode_vs_forward"] = decode_vs_forward(dataclasses.replace(
+        deep, n_layers=2, dtype="float32",
+        capacity_factor=deep.n_experts / deep.top_k))
+    res["card_vs_cpu"] = {
+        (arch, impl): card_vs_cpu(dataclasses.replace(
+            reg.get_smoke_config(arch), dtype="float32", moe_impl=impl))
+        for arch in (MOE_ARCH, MOE_CUT_ARCH)
+        for impl in ("einsum", "scatter")}
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def run_child(label: str, target, timeout: int) -> tuple[dict, float]:
+    """Run ``target(out)`` in a spawned process, killed after ``timeout``
+    seconds; returns the results it pickled and the seconds it took."""
+    import multiprocessing
+    import pickle
+    RANK_DIR.mkdir(parents=True, exist_ok=True)
+    out = RANK_DIR / f"{label.replace(' ', '')}.pkl"
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = multiprocessing.get_context("spawn").Process(
+        target=target, args=(str(out),))
+    proc.start()
+    proc.join(timeout)
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+        check(False, f"{label}: still running after {timeout}s")
+    check(proc.exitcode == 0, f"{label}: exit code {proc.exitcode}")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    return res, time.perf_counter() - t0
+
+
+def check_serves(label: str, runs, vocab: int) -> None:
+    """Two serves of 4 requests x 24 tokens: ids inside the vocabulary,
+    finite last logits, the same tokens both times."""
+    import numpy as np
+    (g1, s1), (g2, s2) = runs
+    check(g1.shape == (4, 24) and ((g1 >= 0) & (g1 < vocab)).all()
+          and s1["logits_finite"] and s2["logits_finite"],
+          f"{label}: generations {g1.shape}, finite "
+          f"{s1['logits_finite']}/{s2['logits_finite']}")
+    check(np.array_equal(g1, g2), f"{label}: the two serves' tokens differ")
+
+
+def say_serve(label: str, s: dict, params: str) -> None:
+    say(f"{label}: 4 requests x 16 prompt + 24 generated tokens; weights "
+        f"{s['weight_bytes']} bytes ({params}), init "
+        f"{s['init_s']:.2f}s, prefill {s['prefill_ms']:.3f} ms, decode "
+        f"{s['decode_ms_per_token']:.3f} ms/token (CUDA events), peak "
+        f"{s['peak_bytes'] / 1e9:.2f} GB; reading the weights once takes "
+        f"{s['weight_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+
+
+def say_profile(label: str, card: str, prof: dict) -> None:
+    say(f"{label} decode under torch.profiler ({card}): "
+        f"{prof['steps']} steps of 4 requests, {prof['wall_ms']:.3f} ms a "
+        f"step on the host's clock, of which the device's kernels "
+        f"{prof['device_ms']:.3f} ms ({prof['kernels']:.0f} kernels a "
+        f"step; busy share {prof['device_ms'] / prof['wall_ms']:.3f})")
 
 
 def phase_serving(card: str) -> None:
@@ -2052,53 +2190,19 @@ def phase_serving(card: str) -> None:
     decoder's attention and matmuls are PyTorch ops, as they are ``jnp``
     in the JAX package), in a spawned process, timed out and killed
     after ``SERVE_TIMEOUT`` seconds."""
-    import multiprocessing
-    import pickle
-    import numpy as np
     import torch
     torch.cuda.empty_cache()
     say(f"phase 13 serving: the miner's process holds "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
-    RANK_DIR.mkdir(parents=True, exist_ok=True)
-    out = RANK_DIR / "phase13.pkl"
-    out.unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    proc = multiprocessing.get_context("spawn").Process(
-        target=serving_child, args=(str(out),))
-    proc.start()
-    proc.join(SERVE_TIMEOUT)
-    if proc.is_alive():
-        proc.kill()
-        proc.join(30)
-        check(False, f"phase 13: still running after {SERVE_TIMEOUT}s")
-    check(proc.exitcode == 0, f"phase 13: exit code {proc.exitcode}")
-    with open(out, "rb") as f:
-        res = pickle.load(f)
-    secs = time.perf_counter() - t0
-    (g1, s1), (g2, s2) = res["runs"]
-    check(g1.shape == (4, 24) and ((g1 >= 0) & (g1 < 152_064)).all()
-          and s1["logits_finite"] and s2["logits_finite"],
-          f"phase 13: generations {g1.shape}, finite "
-          f"{s1['logits_finite']}/{s2['logits_finite']}")
-    check(np.array_equal(g1, g2), "phase 13: the two serves' tokens differ")
-    for i, s in enumerate((s1, s2)):
-        say(f"phase 13 serving {SERVE_ARCH} full width, 48 layers, bf16 "
-            f"({card}), serve {i + 1}: 4 requests x 16 prompt + 24 "
-            f"generated tokens; weights {s['weight_bytes']} bytes "
-            f"({res['params']} parameters), init {s['init_s']:.2f}s, "
-            f"prefill {s['prefill_ms']:.3f} ms, decode "
-            f"{s['decode_ms_per_token']:.3f} ms/token (CUDA events), peak "
-            f"{s['peak_bytes'] / 1e9:.2f} GB; reading the weights once "
-            f"takes {s['weight_bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms at "
-            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    res, secs = run_child("phase 13", serving_child, SERVE_TIMEOUT)
+    check_serves("phase 13", res["runs"], 152_064)
+    for i, (_, s) in enumerate(res["runs"]):
+        say_serve(f"phase 13 serving {SERVE_ARCH} full width, 48 layers, "
+                  f"bf16 ({card}), serve {i + 1}", s,
+                  f"{res['params']} parameters")
     say(f"phase 13 serving: the two serves' tokens are identical; req 0 -> "
-        f"{g1[0][:12].tolist()}")
-    prof = res["profile"]
-    say(f"phase 13 decode under torch.profiler ({card}): "
-        f"{prof['steps']} steps of 4 requests, {prof['wall_ms']:.3f} ms a "
-        f"step on the host's clock, of which the device's kernels "
-        f"{prof['device_ms']:.3f} ms ({prof['kernels']:.0f} kernels a "
-        f"step; busy share {prof['device_ms'] / prof['wall_ms']:.3f})")
+        f"{res['runs'][0][0][0][:12].tolist()}")
+    say_profile("phase 13", card, res["profile"])
     errs = res["decode_vs_forward"]
     check(max(errs) <= 2e-4,
           f"phase 13: cached decode against re-forward, errors {errs}")
@@ -2111,6 +2215,49 @@ def phase_serving(card: str) -> None:
             f"8 decode steps: max rel err {err:.3g} (tolerance 1e-4), "
             f"greedy tokens equal at {same} of {n} steps")
     say(f"phase 13 serving: {secs:.1f}s")
+
+
+def phase_serving_moe(card: str) -> None:
+    """Phase 14: the mixture-of-experts family's serving path (routing,
+    both dispatches, the experts' products and MLA are PyTorch ops, as
+    they are ``jnp`` in the JAX package), in a spawned process, timed
+    out and killed after ``MOE_TIMEOUT`` seconds."""
+    import torch
+    torch.cuda.empty_cache()
+    say(f"phase 14 serving-moe: the miner's process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    res, secs = run_child("phase 14", serving_moe_child, MOE_TIMEOUT)
+    for arch in (MOE_ARCH, MOE_CUT_ARCH):
+        r = res[arch]
+        check_serves(f"phase 14 {arch}", r["runs"], r["vocab"])
+        depth = (f"{r['layers']} layers" if r["layers"] == r["of"] else
+                 f"depth cut to {r['layers']} of {r['of']} layers (the "
+                 f"{r['full_params'] * 2 / 1e9:.2f} GB of bf16 weights of "
+                 f"all {r['of']} do not fit the card)")
+        for i, (_, s) in enumerate(r["runs"]):
+            say_serve(f"phase 14 serving {arch} full width, {depth}, bf16 "
+                      f"({card}), serve {i + 1}", s,
+                      f"{r['params']} parameters, {r['active']} active")
+        say(f"phase 14 serving {arch}: the two serves' tokens are "
+            f"identical; req 0 -> {r['runs'][0][0][0][:12].tolist()}")
+    say_profile(f"phase 14 {MOE_ARCH}", card, res["profile"])
+    errs = res["decode_vs_forward"]
+    check(max(errs) <= 2e-4,
+          f"phase 14: cached decode against re-forward, errors {errs}")
+    say(f"phase 14 decode = re-forward: {MOE_ARCH} full width, 2 layers (1 "
+        f"dense + 1 MoE), float32, capacity factor E/k so that no pair is "
+        f"dropped (at 1.25 a re-forward of S + 1 tokens has another "
+        f"capacity and drops other pairs than the cached step: the JAX "
+        f"package's semantics), 8 cached steps against a re-forward of "
+        f"the prefix: max |diff| / max(1, max |logit|) = {max(errs):.3g} "
+        f"(tolerance 2e-4)")
+    for (arch, impl), (err, same, n) in res["card_vs_cpu"].items():
+        check(err <= 1e-4,
+              f"phase 14: {arch} {impl} card against CPU {err}")
+        say(f"phase 14 card = CPU: {arch} smoke config, moe_impl={impl}, "
+            f"float32, prefill + 8 decode steps: max rel err {err:.3g} "
+            f"(tolerance 1e-4), greedy tokens equal at {same} of {n} steps")
+    say(f"phase 14 serving-moe: {secs:.1f}s")
 
 
 def main() -> int:
@@ -2198,6 +2345,7 @@ def main() -> int:
         phase_nccl()
         phase_examples()
         phase_serving(card)
+        phase_serving_moe(card)
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1

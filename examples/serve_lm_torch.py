@@ -1,6 +1,8 @@
 """Serving on the PyTorch port: batched prefill + decode with a KV cache,
 greedy sampling, for the dense decoder family (qwen2.5-14b, granite-20b,
-minicpm-2b, gemma2-2b), at the reduced config or, with ``--full``, at
+minicpm-2b, gemma2-2b) and the mixture-of-experts family
+(deepseek-v2-lite-16b with its latent-attention cache,
+phi3.5-moe-42b-a6.6b), at the reduced config or, with ``--full``, at
 the published widths.  Weights are random, drawn from a seeded
 generator.
 
@@ -8,8 +10,10 @@ generator.
         [--device cpu] [--full]
 
 Each layer's cache holds the prompt and the generated tokens (P + G
-positions) from the prefill on.  The other families raise, naming the
-ROADMAP item that ports them.
+positions) from the prefill on.  At full width phi3.5-moe's 83.75 GB of
+bf16 weights do not fit one 80 GB card; ``serve`` takes a config cut in
+depth.  The other families raise, naming the ROADMAP item that ports
+them.
 """
 import argparse
 import time

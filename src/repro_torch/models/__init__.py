@@ -1,2 +1,2 @@
 """The LM substrate in plain PyTorch (ROADMAP A13): the serving path of
-the dense decoder family."""
+the dense decoder and mixture-of-experts families."""

@@ -1,6 +1,7 @@
 """Attention in plain PyTorch, the counterpart of
 ``repro.models.attention``: the GQA layer (bias, softcap, sliding
-window) with its train, prefill and decode modes.
+window) with its train, prefill and decode modes, and deepseek-v2's
+multi-head latent attention (MLA).
 
 Scores and softmax run in float32 as in the JAX package.  A masked
 score is ``NEG_INF`` (a large finite number, not ``-inf``), so a row
@@ -8,11 +9,13 @@ with every key masked gives the uniform average the JAX code gives, not
 NaN.  Long sequences run the online-softmax chunked attention, short
 ones and decode the materializing one (``mha``'s dispatch rule).
 
-Cache contract (per layer): ``{"k": (B, T, Kv, dh), "v": (B, T, Kv,
-dh)}``.  Decode writes the new keys and values into the caller's cache
-in place at ``cache_pos`` and attends over ``kv_len = cache_pos + S``.
+Cache contract (per layer): GQA ``{"k": (B, T, Kv, dh), "v": (B, T,
+Kv, dh)}``; MLA ``{"ckv": (B, T, kv_lora), "kr": (B, T, rope_dim)}``,
+the compressed latent and the shared-head rope key.  Decode writes the
+new entries into the caller's cache in place at ``cache_pos`` and
+attends over ``kv_len = cache_pos + S``.
 
-MLA (ROADMAP A13b) and cross-attention (A13d) are not ported yet.
+Cross-attention (ROADMAP A13d) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,11 +25,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import (apply_rope, cdtype, dense_init, project, rope_table,
-                     softcap)
+from .common import (apply_rope, cdtype, dense_init, norm_init, project,
+                     rmsnorm, rope_table, softcap)
 
-__all__ = ["NEG_INF", "Attention", "chunked_mha", "plain_mha", "mha",
-           "mla"]
+__all__ = ["NEG_INF", "Attention", "MLA", "chunked_mha", "plain_mha",
+           "mha"]
 
 NEG_INF = -2.0 ** 30
 
@@ -127,6 +130,12 @@ def mha(q, k, v, *, scale, causal, window, cap, q_offset=0, kv_len=None,
                        kv_chunk=kv_chunk, schedule=schedule)
 
 
+def _check_fits(cache_pos: int, S: int, T: int) -> None:
+    if cache_pos + S > T:
+        raise ValueError(f"decode at {cache_pos} of {S} tokens past a cache "
+                         f"of {T}")
+
+
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
@@ -195,9 +204,7 @@ class Attention(nn.Module):
         else:
             # decode: write new k/v at cache_pos, attend over the prefix
             ck, cv = cache["k"], cache["v"]
-            if cache_pos + S > ck.shape[1]:
-                raise ValueError(f"decode at {cache_pos} of {S} tokens past "
-                                 f"a cache of {ck.shape[1]}")
+            _check_fits(cache_pos, S, ck.shape[1])
             ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
             cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
             o = plain_mha(q, ck, cv, scale=scale, causal=True, window=window,
@@ -218,7 +225,114 @@ def init_layer_cache(cfg, batch: int, max_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def mla(*args, **kwargs):
-    """deepseek-v2's latent-cache attention: not ported yet."""
-    raise NotImplementedError("MLA attention is ROADMAP A13b (MoE + MLA "
-                              "serving), not ported yet")
+class MLA(nn.Module):
+    """deepseek-v2's latent attention: ``w_dkv`` (d, kv_lora), ``w_kr``
+    (d, rope), ``w_uk`` (kv_lora, H, nope), ``w_uv`` (kv_lora, H, v),
+    ``wo`` (H, v, d) and either ``wq`` (d, H, nope + rope) or, when
+    ``q_lora`` > 0, ``w_dq`` (d, q_lora) and ``w_uq`` (q_lora, H, nope +
+    rope), in the compute dtype; ``kv_norm`` (and ``q_norm``) in
+    float32.  The init keeps the JAX fan-in rule (the first axis: H for
+    ``wo``).
+
+    Prefill decompresses the keys and values and runs ``mha`` with its
+    default chunks and schedule, as the JAX layer does (it does not read
+    ``cfg.attn_schedule``); the cache holds only the normed latent and
+    the rope key.  Decode is the absorbed form: the query is taken into
+    latent space through ``w_uk``, scored against the latent cache in
+    float32, and the latent output leaves through ``w_uv`` and ``wo``."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        H, d, dt = cfg.n_heads, cfg.d_model, cdtype(cfg)
+        qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+
+        def init(shape):
+            return _param(dense_init(shape, generator=generator,
+                                     device=device, dtype=dt))
+
+        self.w_dkv = init((d, cfg.kv_lora))
+        self.w_kr = init((d, cfg.qk_rope_dim))
+        self.w_uk = init((cfg.kv_lora, H, cfg.qk_nope_dim))
+        self.w_uv = init((cfg.kv_lora, H, cfg.v_head_dim))
+        self.wo = init((H, cfg.v_head_dim, d))
+        self.kv_norm = _param(norm_init(cfg.kv_lora, device))
+        if cfg.q_lora:
+            self.w_dq = init((d, cfg.q_lora))
+            self.w_uq = init((cfg.q_lora, H, qk))
+            self.q_norm = _param(norm_init(cfg.q_lora, device))
+        else:
+            self.wq = init((d, H, qk))
+
+    def forward(self, x, *, cache: Optional[dict] = None,
+                cache_pos: Optional[int] = None, make_cache: bool = False,
+                max_len: Optional[int] = None):
+        """The modes of ``Attention.forward``, with the latent cache."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        dt = x.dtype
+        H = cfg.n_heads
+        nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
+        scale = 1.0 / np.sqrt(nope + rdim)
+
+        base = 0 if cache_pos is None else cache_pos
+        positions = (base + torch.arange(S, device=x.device))[None, :]
+        sin, cos = rope_table(positions.expand(B, S), rdim, cfg.rope_theta)
+
+        if cfg.q_lora:
+            cq = rmsnorm(self.q_norm, project(x, self.w_dq.to(dt)),
+                         eps=cfg.norm_eps)
+            q = project(cq, self.w_uq.to(dt))
+        else:
+            q = project(x, self.wq.to(dt))
+        q_nope = q[..., :nope]
+        q_rope = apply_rope(q[..., nope:], sin, cos)
+
+        ckv = rmsnorm(self.kv_norm, project(x, self.w_dkv.to(dt)),
+                      eps=cfg.norm_eps)
+        kr = apply_rope(project(x, self.w_kr.to(dt))[:, :, None, :], sin,
+                        cos)[:, :, 0]                     # shared head
+
+        if cache is not None:
+            # absorbed decode: stay in latent space
+            cc, ckr = cache["ckv"], cache["kr"]
+            T = cc.shape[1]
+            _check_fits(cache_pos, S, T)
+            cc[:, cache_pos:cache_pos + S] = ckv.to(cc.dtype)
+            ckr[:, cache_pos:cache_pos + S] = kr.to(ckr.dtype)
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
+                                 self.w_uk.to(dt))        # (B,S,H,lora)
+            ccf = cc.float()
+            s = (torch.einsum("bshr,btr->bhst", q_lat.float(), ccf)
+                 + torch.einsum("bshr,btr->bhst", q_rope.float(),
+                                ckr.float())) * scale
+            q_pos = cache_pos + torch.arange(S, device=x.device)
+            msk = _block_mask(q_pos, torch.arange(T, device=x.device),
+                              causal=True, window=None,
+                              kv_len=cache_pos + S)
+            p = torch.softmax(torch.where(msk, s, NEG_INF), dim=-1)
+            o_lat = torch.einsum("bhst,btr->bshr", p, ccf)
+            o = torch.einsum("bshr,rhv->bshv", o_lat.to(dt),
+                             self.w_uv.to(dt))
+            new_cache = cache
+        else:
+            # train / prefill: decompress k, v and run the attention
+            k_nope = project(ckv, self.w_uk.to(dt))
+            v = project(ckv, self.w_uv.to(dt))
+            k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, rdim)],
+                          -1)
+            qf = torch.cat([q_nope, q_rope], -1)
+            o = mha(qf, k, v, scale=scale, causal=True, window=None,
+                    cap=None)
+            new_cache = None
+            if make_cache:
+                T = max_len or S
+                new_cache = {
+                    "ckv": torch.zeros((B, T, cfg.kv_lora), dtype=dt,
+                                       device=x.device),
+                    "kr": torch.zeros((B, T, rdim), dtype=dt,
+                                      device=x.device)}
+                new_cache["ckv"][:, :S] = ckv
+                new_cache["kr"][:, :S] = kr
+        wo = self.wo.to(dt).reshape(-1, cfg.d_model)
+        return project(o.reshape(B, S, -1), wo), new_cache

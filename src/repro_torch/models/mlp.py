@@ -1,16 +1,30 @@
 """Feed-forward layers in plain PyTorch, the counterpart of
-``repro.models.mlp``: the SwiGLU / GELU MLP.  GELU is the tanh
-approximation, which ``jax.nn.gelu`` computes by default.  The mixture
-of experts is ROADMAP A13b, not ported yet."""
+``repro.models.mlp``: the SwiGLU / GELU MLP and the mixture of experts.
+GELU is the tanh approximation, which ``jax.nn.gelu`` computes by
+default.
+
+The mixture of experts is GShard-style capacity dispatch: top-k routing
+in float32, a per-row expert capacity C, and either the one-hot
+(B, S, E, C) dispatch and combine products (``moe_impl="einsum"``) or
+an index-add into a (B, E, C + 1, d) buffer whose slot C takes the
+dropped pairs (``"scatter"``), each the twin of its JAX formulation.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .common import cdtype, dense_init, project
 
-__all__ = ["MLP", "moe"]
+__all__ = ["MLP", "MoE", "capacity"]
+
+
+def _weight(shape, *, generator, device, dtype, scale=None) -> nn.Parameter:
+    return nn.Parameter(dense_init(shape, generator=generator, device=device,
+                                   dtype=dtype, scale=scale),
+                        requires_grad=False)
 
 
 class MLP(nn.Module):
@@ -24,9 +38,8 @@ class MLP(nn.Module):
         dt = cdtype(cfg)
 
         def init(shape):
-            return nn.Parameter(dense_init(shape, generator=generator,
-                                           device=device, dtype=dt),
-                                requires_grad=False)
+            return _weight(shape, generator=generator, device=device,
+                           dtype=dt)
 
         self.w_up = init((cfg.d_model, d_ff))
         self.w_down = init((d_ff, cfg.d_model))
@@ -43,7 +56,115 @@ class MLP(nn.Module):
         return project(h, self.w_down.to(dt))
 
 
-def moe(*args, **kwargs):
-    """The mixture of experts: not ported yet."""
-    raise NotImplementedError("the MoE layer is ROADMAP A13b (MoE + MLA "
-                              "serving), not ported yet")
+def capacity(cfg, S: int) -> int:
+    """Each expert's buffer length per batch row: ceil(S·k/E·cf), at
+    least 4 (the JAX expression, so that the float rounds the same)."""
+    c = int(np.ceil(S * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(c, 4)
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) in float32, since the JAX package routes from
+    its float32 masters and a bf16 router would choose other experts;
+    the experts' ``w_gate``/``w_up`` (E, d, f_e) and ``w_down`` (E, f_e,
+    d) and, when ``n_shared`` > 0, ``shared.w_gate``/``w_up`` (d,
+    n_shared·f_e) and ``shared.w_down``, held in the compute dtype.  The
+    init keeps the JAX fan-in rule (the first axis: E for the expert
+    tensors)."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        dt = cdtype(cfg)
+
+        def init(shape, dtype=dt, scale=None):
+            return _weight(shape, generator=generator, device=device,
+                           dtype=dtype, scale=scale)
+
+        self.router = init((d, E), torch.float32, scale=0.02)
+        self.w_gate = init((E, d, f))
+        self.w_up = init((E, d, f))
+        self.w_down = init((E, f, d))
+        if cfg.n_shared:
+            self.shared = nn.Module()
+            self.shared.w_gate = init((d, cfg.n_shared * f))
+            self.shared.w_up = init((d, cfg.n_shared * f))
+            self.shared.w_down = init((cfg.n_shared * f, d))
+
+    def route(self, x: torch.Tensor):
+        """Top-k routing of x (B, S, d).  Returns the gates (B, S, E),
+        zero off each token's top k and normalised over them, and the
+        auxiliary loss before
+        ``router_aux_coef``: the load-balance term E·Σ f_e·p̄_e plus
+        1e-3 times the mean squared logsumexp of the logits (z-loss)."""
+        cfg = self.cfg
+        logits = project(x.float(), self.router.float())
+        probs = torch.softmax(logits, dim=-1)
+        topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
+        onehot = F.one_hot(topi, cfg.n_experts).to(probs.dtype)
+        gates = (topv[..., None] * onehot).sum(-2)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        frac = (gates > 0).float().mean((0, 1))
+        aux = cfg.n_experts * torch.sum(frac * probs.mean((0, 1)))
+        zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+        return gates, aux + 1e-3 * zloss
+
+    @staticmethod
+    def slots(gates: torch.Tensor, C: int):
+        """Each (token, expert) pair's position in its expert's buffer,
+        counted along S in each batch row, and which pairs are kept:
+        selected and at a position below C."""
+        sel = gates > 0
+        pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1
+        return pos, sel & (pos < C)
+
+    def _expert_ffn(self, xe: torch.Tensor) -> torch.Tensor:
+        """xe (B, E, C, d) -> (B, E, C, d) through each expert's
+        SwiGLU."""
+        dt = xe.dtype
+        g = torch.einsum("becd,edf->becf", xe, self.w_gate.to(dt))
+        u = torch.einsum("becd,edf->becf", xe, self.w_up.to(dt))
+        return torch.einsum("becf,efd->becd", F.silu(g) * u,
+                            self.w_down.to(dt))
+
+    def forward(self, x: torch.Tensor):
+        """Returns (y, aux): y (B, S, d) in x's dtype and the auxiliary
+        loss times ``router_aux_coef`` (float32)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        dt = x.dtype
+        E = cfg.n_experts
+        gates, aux = self.route(x)
+        C = capacity(cfg, S)
+        pos, keep = self.slots(gates, C)
+
+        if cfg.moe_impl == "einsum":
+            disp = (keep[..., None] & (pos[..., None] == torch.arange(
+                C, device=x.device))).to(dt)                  # (B,S,E,C)
+            xe = torch.einsum("bsd,bsec->becd", x, disp)
+            ye = self._expert_ffn(xe)
+            comb = disp * gates.to(dt)[..., None]
+            y = torch.einsum("becd,bsec->bsd", ye, comb)
+        elif cfg.moe_impl == "scatter":
+            bb = torch.arange(B, device=x.device)[:, None, None].expand(
+                B, S, E)
+            be = torch.arange(E, device=x.device).expand(B, S, E)
+            posc = torch.where(keep, pos, C)                  # drop slot C
+            xb = x[:, :, None, :].expand(B, S, E, d)
+            buf = torch.zeros((B, E, C + 1, d), dtype=dt, device=x.device)
+            buf.index_put_((bb, be, posc),
+                           torch.where(keep[..., None], xb, 0),
+                           accumulate=True)
+            ye = F.pad(self._expert_ffn(buf[:, :, :C]), (0, 0, 0, 1))
+            y = (ye[bb, be, posc] * gates.to(dt)[..., None]
+                 * keep[..., None]).sum(2)
+        else:
+            raise ValueError(cfg.moe_impl)
+
+        if cfg.n_shared:
+            sh = self.shared
+            h = (F.silu(project(x, sh.w_gate.to(dt)))
+                 * project(x, sh.w_up.to(dt)))
+            y = y + project(h, sh.w_down.to(dt))
+        return y, cfg.router_aux_coef * aux

@@ -2,7 +2,7 @@
 ``repro.models.registry``: ``--arch <id>`` -> config + model functions.
 
 ``build(cfg, device=)`` returns the serving function set of the dense
-decoder family:
+decoder and mixture-of-experts families:
     init(generator) -> model                              [random init]
     prefill(model, batch, max_len=None) -> (logits, cache)
     decode(model, cache, batch, pos) -> (logits, cache)
@@ -73,9 +73,19 @@ def resolve_device(device=None) -> torch.device:
 
 def count_params(cfg, active_only: bool = False) -> int:
     """Exact parameter count from the model's parameter shapes on the
-    ``meta`` device (nothing is allocated).  The dense family has no
-    experts, so ``active_only`` counts the same."""
-    return sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    ``meta`` device (nothing is allocated).  ``active_only`` counts only
+    top_k of the n_experts routed experts, by the JAX package's rule:
+    the expert parameters are those under ``moe`` other than ``shared``
+    and ``router``."""
+    total = expert = 0
+    for name, p in LM(cfg, device="meta").named_parameters():
+        total += p.numel()
+        keys = name.split(".")
+        if "moe" in keys and "shared" not in keys and "router" not in keys:
+            expert += p.numel()
+    if active_only and cfg.n_experts:
+        total -= int(expert * (1 - cfg.top_k / cfg.n_experts))
+    return total
 
 
 def params_from_jax(cfg, tree, *, device) -> LM:
@@ -83,8 +93,8 @@ def params_from_jax(cfg, tree, *, device) -> LM:
     (numpy arrays, or anything ``np.asarray`` takes): each ``group_{gi}``
     leaf's leading ``(repeat,)`` axis is unstacked into the blocks.  The
     matmul weights are held in ``cfg.dtype``, cast from the float32
-    masters as the JAX code casts them at each use; norm scales and
-    biases stay float32."""
+    masters as the JAX code casts them at each use; norm scales, biases
+    and the MoE router stay float32."""
     model = LM(cfg, device="meta").to_empty(device=device)
     want = dict(model.named_parameters())
     got = {}
@@ -128,7 +138,7 @@ def params_from_jax(cfg, tree, *, device) -> LM:
 def build(cfg, device=None) -> dict[str, Callable]:
     """The serving functions of ``cfg`` on ``device`` (the card unless
     the caller names another).  ``batch`` is ``{"tokens": (B, S)}``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise not_ported(cfg.family)
     device = resolve_device(device)
 
@@ -137,13 +147,15 @@ def build(cfg, device=None) -> dict[str, Callable]:
 
     @torch.no_grad()
     def prefill(model, batch, max_len: Optional[int] = None):
-        return model(batch["tokens"].to(device), make_cache=True,
-                     max_len=max_len,
-                     last_logit_only=(cfg.prefill_logits == "last"))
+        logits, cache, _ = model(
+            batch["tokens"].to(device), make_cache=True, max_len=max_len,
+            last_logit_only=(cfg.prefill_logits == "last"))
+        return logits, cache
 
     @torch.no_grad()
     def decode(model, cache, batch, pos: int):
-        return model(batch["tokens"].to(device), cache=cache,
-                     cache_pos=pos)
+        logits, cache, _ = model(batch["tokens"].to(device), cache=cache,
+                                 cache_pos=pos)
+        return logits, cache
 
     return {"init": init, "prefill": prefill, "decode": decode}

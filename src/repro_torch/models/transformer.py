@@ -1,6 +1,8 @@
 """Model assembly in plain PyTorch, the counterpart of
 ``repro.models.transformer``, for the dense decoder family (qwen2.5,
-granite, minicpm and gemma2's alternating local/global attention).
+granite, minicpm and gemma2's alternating local/global attention) and
+the mixture-of-experts family (deepseek-v2-lite's latent attention and
+leading dense layer, phi3.5-moe's GQA).
 
 The JAX package scans each group of sub-layers ``repeat`` times over
 stacked parameters.  Eager PyTorch has nothing to gain from a scan, so
@@ -21,15 +23,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .attention import Attention
+from .attention import MLA, Attention
 from .common import cdtype, dense_init, norm_init, rmsnorm, softcap
-from .mlp import MLP
+from .mlp import MLP, MoE
 
 __all__ = ["GroupSpec", "arch_groups", "Block", "LM", "LATER"]
 
 # what each family, mixer or feed-forward the port lacks waits for
 LATER = {
-    "moe": "A13b (MoE + MLA serving)", "mla": "A13b (MoE + MLA serving)",
     "ssm": "A13c (SSM / hybrid / xLSTM serving)",
     "hybrid": "A13c (SSM / hybrid / xLSTM serving)",
     "mamba": "A13c (SSM / hybrid / xLSTM serving)",
@@ -105,22 +106,27 @@ def _norm(cfg, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One sub-layer: ``ln1`` → mixer (→ ``post_ln1``) → residual, then
-    ``ln2`` → MLP (→ ``post_ln2``) → residual.  Norm scales in float32."""
+    """One sub-layer: ``ln1`` → mixer (GQA or MLA, under ``attn``) (→
+    ``post_ln1``) → residual, then ``ln2`` → MLP or MoE (→ ``post_ln2``)
+    → residual.  Norm scales in float32."""
 
     def __init__(self, cfg, mixer: str, ffn: str, *, device,
                  generator=None):
         super().__init__()
-        if mixer not in ("attn", "attn_local"):
+        if mixer not in ("attn", "attn_local", "mla"):
             raise not_ported(mixer)
-        if ffn not in ("mlp", "none"):
+        if ffn not in ("mlp", "moe", "none"):
             raise not_ported(ffn)
         self.cfg, self.mixer, self.ffn = cfg, mixer, ffn
         self.ln1 = _norm(cfg, device)
-        self.attn = Attention(cfg, device=device, generator=generator)
+        mix = MLA if mixer == "mla" else Attention
+        self.attn = mix(cfg, device=device, generator=generator)
         if ffn != "none":
             self.ln2 = _norm(cfg, device)
-            self.mlp = MLP(cfg, device=device, generator=generator)
+            if ffn == "moe":
+                self.moe = MoE(cfg, device=device, generator=generator)
+            else:
+                self.mlp = MLP(cfg, device=device, generator=generator)
         if cfg.post_norms:
             self.post_ln1 = _norm(cfg, device)
             if ffn != "none":
@@ -128,25 +134,32 @@ class Block(nn.Module):
 
     def forward(self, x, *, cache=None, cache_pos=None, make_cache=False,
                 max_len=None):
+        """Returns (x, cache, aux): aux is the MoE's auxiliary loss, None
+        for the other feed-forwards."""
         cfg = self.cfg
         h = rmsnorm(self.ln1, x, eps=cfg.norm_eps,
                     zero_centered=cfg.post_norms)
-        y, new_cache = self.attn(
-            h, layer_local=(self.mixer == "attn_local"), cache=cache,
-            cache_pos=cache_pos, make_cache=make_cache, max_len=max_len)
+        kw = {"layer_local": True} if self.mixer == "attn_local" else {}
+        y, new_cache = self.attn(h, cache=cache, cache_pos=cache_pos,
+                                 make_cache=make_cache, max_len=max_len,
+                                 **kw)
         if cfg.post_norms:
             y = rmsnorm(self.post_ln1, y, eps=cfg.norm_eps,
                         zero_centered=True)
         x = x + y
+        aux = None
         if self.ffn != "none":
             h = rmsnorm(self.ln2, x, eps=cfg.norm_eps,
                         zero_centered=cfg.post_norms)
-            y = self.mlp(h)
+            if self.ffn == "moe":
+                y, aux = self.moe(h)
+            else:
+                y = self.mlp(h)
             if cfg.post_norms:
                 y = rmsnorm(self.post_ln2, y, eps=cfg.norm_eps,
                             zero_centered=True)
             x = x + y
-        return x, new_cache
+        return x, new_cache, aux
 
 
 class LM(nn.Module):
@@ -159,7 +172,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise not_ported(cfg.family)
         self.cfg = cfg
         dt = cdtype(cfg)
@@ -177,11 +190,12 @@ class LM(nn.Module):
 
     def forward(self, tokens, *, cache=None, cache_pos=None,
                 make_cache=False, max_len=None, last_logit_only=False):
-        """Returns (logits, caches): the caches are a list, one per
-        block, when ``make_cache`` (prefill, each of ``max_len``
-        positions) or ``cache`` (decode at ``cache_pos``, written in
-        place) is given, else None.  The dense family has no auxiliary
-        loss."""
+        """Returns (logits, caches, aux), as ``forward_lm`` does: the
+        caches are a list, one per block, when ``make_cache`` (prefill,
+        each of ``max_len`` positions) or ``cache`` (decode at
+        ``cache_pos``, written in place) is given, else None; aux is the
+        sum of the MoE blocks' auxiliary losses (float32, 0 for the
+        dense family)."""
         cfg = self.cfg
         dt = cdtype(cfg)
         x = F.embedding(tokens, self.embed).to(dt)
@@ -189,12 +203,15 @@ class LM(nn.Module):
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
                                  device=x.device)
         new_caches = []
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
-            x, nc = layer(x, cache=cache[i] if cache is not None else None,
-                          cache_pos=cache_pos,
-                          make_cache=make_cache or cache is not None,
-                          max_len=max_len)
+            x, nc, aux = layer(
+                x, cache=cache[i] if cache is not None else None,
+                cache_pos=cache_pos,
+                make_cache=make_cache or cache is not None, max_len=max_len)
             new_caches.append(nc)
+            if aux is not None:
+                aux_total = aux_total + aux
         if last_logit_only:
             # serving prefill: only the final position's logits are
             # needed — slice BEFORE the head matmul
@@ -204,4 +221,4 @@ class LM(nn.Module):
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = softcap(x @ head.to(dt), cfg.final_softcap)
         return logits, (new_caches if (cache is not None or make_cache)
-                        else None)
+                        else None), aux_total

@@ -22,8 +22,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models.transformer import LM
 
 DENSE = ["qwen2p5_14b", "granite_20b", "minicpm_2b", "gemma2_2b"]
-OTHER = {"deepseek_v2_lite": "A13b", "phi3p5_moe": "A13b",
-         "zamba2_2p7b": "A13c", "xlstm_1p3b": "A13c",
+OTHER = {"zamba2_2p7b": "A13c", "xlstm_1p3b": "A13c",
          "whisper_base": "A13d", "qwen2_vl_72b": "A13d"}
 
 
@@ -51,10 +50,11 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / max(1.0, np.abs(a).max()))
 
 
-def _cfgs(jx, arch, dtype):
+def _cfgs(jx, arch, dtype, **over):
     return (dataclasses.replace(jx.registry.get_smoke_config(arch),
-                                dtype=dtype),
-            dataclasses.replace(treg.get_smoke_config(arch), dtype=dtype))
+                                dtype=dtype, **over),
+            dataclasses.replace(treg.get_smoke_config(arch), dtype=dtype,
+                                **over))
 
 
 def _jax_params(jx, cfg, seed=0):
@@ -240,8 +240,6 @@ def test_mlp_equals_jax(jx, arch):
         got = m(_t(x))
     assert tcfg.mlp == ("gelu" if arch == "granite_20b" else "swiglu")
     np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tmlp.moe(p, x, cfg)
 
 
 @pytest.mark.parametrize("arch,local", [("qwen2p5_14b", False),
@@ -285,8 +283,6 @@ def test_attention_layer_prefill_and_decode_equal_jax(jx, arch, local):
                                atol=1e-5)
     with pytest.raises(ValueError, match="past a cache"):
         layer(_t(x[:, :1]), cache=tc, cache_pos=S + extra)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tattn.mla(p, x, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -321,14 +317,19 @@ def test_held_weights_are_the_masters_cast_to_bf16(jx):
     assert not any(p.requires_grad for p in model.parameters())
 
 
-def _serve_both(jx, arch, dtype, B=2, P=8, G=8, seed=0):
+def _serve_both(jx, arch, dtype, B=2, P=8, G=8, seed=0, on_model=None,
+                **over):
     """Prefill ``P`` tokens and decode ``G`` more, greedy, in both
-    packages on the same weights; the port is fed JAX's tokens.  Returns
-    the per-step relative errors and whether every greedy token agreed."""
+    packages on the same weights; the port is fed JAX's tokens.  ``over``
+    replaces config fields in both; ``on_model`` is called with the
+    port's model before the prefill.  Returns the per-step relative
+    errors and whether every greedy token agreed."""
     jax, jnp = jx.jax, jx.jnp
-    cfg, tcfg = _cfgs(jx, arch, dtype)
+    cfg, tcfg = _cfgs(jx, arch, dtype, **over)
     params, tree = _jax_params(jx, cfg, seed)
     model = treg.params_from_jax(tcfg, tree, device="cpu")
+    if on_model is not None:
+        on_model(model)
     fns, tfns = jx.registry.build(cfg), treg.build(tcfg, device="cpu")
     toks = np.random.default_rng(seed).integers(1, cfg.vocab, (B, P))
     jl, jc = jax.jit(fns["prefill"])(params, {"tokens": jnp.asarray(toks)})

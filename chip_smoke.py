@@ -1885,6 +1885,16 @@ MOE_ARCH = "deepseek-v2-lite-16b"          # full width and depth
 MOE_CUT_ARCH = "phi3.5-moe-42b-a6.6b"      # full width, depth cut
 MOE_CUT_LAYERS = 8
 MOE_TIMEOUT = 300
+SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")   # full width and depth
+# the held weights' bytes and the parameters of each (repro's init_lm
+# shapes; float32 where repro uses a tensor uncast, bf16 elsewhere)
+SSM_WEIGHTS = {"zamba2-2.7b": (5_940_259_456, 2_969_653_408),
+               "xlstm-1.3b": (2_323_718_816, 1_135_757_480)}
+# decode against a re-forward: full width, depth cut to one unit (6
+# Mamba2 + the shared block; 7 mLSTM + 1 sLSTM), chunks of 8
+SSM_CUT_LAYERS = {"zamba2-2.7b": 6, "xlstm-1.3b": 8}
+SSM_LONG_PROMPT = 1024
+SSM_TIMEOUT = 420
 
 
 def load_example(name: str):
@@ -2132,6 +2142,96 @@ def serving_moe_child(out: str) -> None:
         pickle.dump(res, f)
 
 
+def long_prefill(cfg, S: int) -> dict:
+    """One request of ``S`` prompt tokens through ``cfg``'s prefill on
+    the card, three times (CUDA events): first, warm, and once more with
+    CUDA events around every block.  Returns the first and warm ms,
+    whether the logits are finite, the peak memory and each block
+    kind's share of the third prefill's time."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    fns = reg.build(cfg, device="cuda")
+    model = fns["init"](torch.Generator("cuda").manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        1, cfg.vocab, (1, S)), device="cuda")
+    spans = []
+
+    def before(block, args):
+        spans.append((block.kind, torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True)))
+        spans[-1][1].record()
+
+    def after(block, args, out):
+        spans[-1][2].record()
+
+    res = {}
+    for label in ("first", "warm", "split"):
+        hooks = []
+        if label == "split":
+            hooks = [b.register_forward_pre_hook(before)
+                     for b in model.layers]
+            hooks += [b.register_forward_hook(after) for b in model.layers]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        logits, _ = fns["prefill"](model, {"tokens": toks})
+        ev[1].record()
+        torch.cuda.synchronize()
+        res[f"{label}_ms"] = ev[0].elapsed_time(ev[1])
+        for h in hooks:
+            h.remove()
+    res["finite"] = bool(torch.isfinite(logits).all())
+    res["shape"] = tuple(logits.shape)
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    share = {}
+    for kind, a, b in spans:
+        share[kind] = share.get(kind, 0.0) + a.elapsed_time(b)
+    res["share"] = {k: v / res["split_ms"] for k, v in share.items()}
+    del model, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def serving_ssm_child(out: str) -> None:
+    """Phase 15's work, in a process of its own: zamba2-2.7b and
+    xlstm-1.3b at full width and depth through ``serve_lm_torch.main``
+    twice each, a profile of each one's decode, one ``SSM_LONG_PROMPT``
+    token prefill of each at the default ``ssm_chunk``; cached decode
+    against a re-forward at full width, depth cut to ``SSM_CUT_LAYERS``,
+    float32, ``ssm_chunk`` 8 (16 prompt and 24 decoded tokens); both
+    smoke configs on the card against the CPU, float32.  Writes its
+    results to ``out`` (pickle)."""
+    use_src()
+    import dataclasses
+    import pickle
+    import torch
+    from repro_torch.models import registry as reg
+    serve = load_example("serve_lm_torch")
+    res = {}
+    for arch in SSM_ARCHS:
+        full = reg.get_config(arch)
+        runs = []
+        for _ in range(2):
+            runs.append(serve.main(["--arch", arch, "--full", "--device",
+                                    "cuda"]))
+            torch.cuda.empty_cache()
+        r = res[arch] = {"runs": runs, "vocab": full.vocab,
+                         "layers": full.n_layers,
+                         "params": reg.count_params(full)}
+        r["profile"] = profile_decode(full)
+        torch.cuda.empty_cache()
+        r["long"] = long_prefill(full, SSM_LONG_PROMPT)
+        r["decode_vs_forward"] = decode_vs_forward(
+            dataclasses.replace(full, n_layers=SSM_CUT_LAYERS[arch],
+                                dtype="float32", ssm_chunk=8), G=24)
+        r["card_vs_cpu"] = card_vs_cpu(dataclasses.replace(
+            reg.get_smoke_config(arch), dtype="float32"))
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
 def run_child(label: str, target, timeout: int) -> tuple[dict, float]:
     """Run ``target(out)`` in a spawned process, killed after ``timeout``
     seconds; returns the results it pickled and the seconds it took."""
@@ -2260,6 +2360,72 @@ def phase_serving_moe(card: str) -> None:
     say(f"phase 14 serving-moe: {secs:.1f}s")
 
 
+def phase_serving_ssm(card: str) -> None:
+    """Phase 15: the recurrent families' serving path (Mamba2's chunked
+    SSD, mLSTM's chunked form, sLSTM's recurrence, zamba2's shared
+    attention: PyTorch ops, as they are ``jnp`` in the JAX package), in a
+    spawned process, timed out and killed after ``SSM_TIMEOUT``
+    seconds."""
+    import torch
+    torch.cuda.empty_cache()
+    say(f"phase 15 serving-ssm: the miner's process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    res, secs = run_child("phase 15", serving_ssm_child, SSM_TIMEOUT)
+    for arch in SSM_ARCHS:
+        r = res[arch]
+        want_bytes, want_params = SSM_WEIGHTS[arch]
+        check_serves(f"phase 15 {arch}", r["runs"], r["vocab"])
+        check(r["params"] == want_params,
+              f"phase 15 {arch}: {r['params']} parameters, repro has "
+              f"{want_params}")
+        for i, (_, s) in enumerate(r["runs"]):
+            check(s["weight_bytes"] == want_bytes,
+                  f"phase 15 {arch}: weights {s['weight_bytes']} bytes, "
+                  f"not {want_bytes}")
+            say_serve(f"phase 15 serving {arch} full width, {r['layers']} "
+                      f"layers, bf16 ({card}), serve {i + 1}", s,
+                      f"{r['params']} parameters")
+        say(f"phase 15 serving {arch}: the two serves' tokens are "
+            f"identical; req 0 -> {r['runs'][0][0][0][:12].tolist()}")
+        say_profile(f"phase 15 {arch}", card, r["profile"])
+        lp = r["long"]
+        check(lp["finite"], f"phase 15 {arch}: the {SSM_LONG_PROMPT}-token "
+                            f"prefill's logits are not finite")
+        shares = ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            lp["share"].items()))
+        say(f"phase 15 long prompt: {arch} full width and depth, bf16, 1 "
+            f"request of {SSM_LONG_PROMPT} tokens at ssm_chunk "
+            f"{long_chunk(arch)} ({SSM_LONG_PROMPT // long_chunk(arch)} "
+            f"chunks), logits {lp['shape']} finite; prefill "
+            f"{lp['first_ms']:.3f} ms first, {lp['warm_ms']:.3f} ms warm "
+            f"(CUDA events), peak {lp['peak_bytes'] / 1e9:.2f} GB; a third "
+            f"prefill with CUDA events around each block, "
+            f"{lp['split_ms']:.3f} ms, by block kind: {shares}")
+        errs = r["decode_vs_forward"]
+        check(max(errs) <= 2e-4,
+              f"phase 15 {arch}: cached decode against re-forward, "
+              f"errors {errs}")
+        say(f"phase 15 decode = re-forward: {arch} full width, "
+            f"{SSM_CUT_LAYERS[arch]} layers, float32, ssm_chunk 8, 16 "
+            f"prompt tokens then 24 cached steps against a re-forward of "
+            f"the prefix (17-40 tokens): max |diff| / max(1, max |logit|) "
+            f"= {max(errs):.3g} (tolerance 2e-4)")
+        err, same, n = r["card_vs_cpu"]
+        check(err <= 1e-4, f"phase 15: {arch} card against CPU {err}")
+        say(f"phase 15 card = CPU: {arch} smoke config, float32, prefill + "
+            f"8 decode steps: max rel err {err:.3g} (tolerance 1e-4), "
+            f"greedy tokens equal at {same} of {n} steps")
+    say(f"phase 15 serving-ssm: {secs:.1f}s")
+
+
+def long_chunk(arch: str) -> int:
+    """The chunk ``pick_chunk`` gives the long prompt at ``arch``'s
+    default ``ssm_chunk``."""
+    from repro_torch.models import registry as reg
+    from repro_torch.models.ssm import pick_chunk
+    return pick_chunk(SSM_LONG_PROMPT, reg.get_config(arch).ssm_chunk)
+
+
 def main() -> int:
     try:
         import torch
@@ -2346,6 +2512,7 @@ def main() -> int:
         phase_examples()
         phase_serving(card)
         phase_serving_moe(card)
+        phase_serving_ssm(card)
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1

@@ -1,19 +1,21 @@
-"""Serving on the PyTorch port: batched prefill + decode with a KV cache,
-greedy sampling, for the dense decoder family (qwen2.5-14b, granite-20b,
-minicpm-2b, gemma2-2b) and the mixture-of-experts family
+"""Serving on the PyTorch port: batched prefill + cached decode, greedy
+sampling, for the dense decoder family (qwen2.5-14b, granite-20b,
+minicpm-2b, gemma2-2b), the mixture-of-experts family
 (deepseek-v2-lite-16b with its latent-attention cache,
-phi3.5-moe-42b-a6.6b), at the reduced config or, with ``--full``, at
-the published widths.  Weights are random, drawn from a seeded
-generator.
+phi3.5-moe-42b-a6.6b), the hybrid family (zamba2-2.7b: Mamba2 layers
+and one shared attention block) and the ssm family (xlstm-1.3b: mLSTM
+and sLSTM), at the reduced config or, with ``--full``, at the published
+widths.  Weights are random, drawn from a seeded generator.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2.5-14b \\
         [--device cpu] [--full]
 
-Each layer's cache holds the prompt and the generated tokens (P + G
-positions) from the prefill on.  At full width phi3.5-moe's 83.75 GB of
-bf16 weights do not fit one 80 GB card; ``serve`` takes a config cut in
-depth.  The other families raise, naming the ROADMAP item that ports
-them.
+Each attention layer's cache holds the prompt and the generated tokens
+(P + G positions) from the prefill on; a Mamba2, mLSTM or sLSTM layer
+carries its recurrent state instead.  At full width phi3.5-moe's 83.75
+GB of bf16 weights do not fit one 80 GB card; ``serve`` takes a config
+cut in depth.  whisper-base and qwen2-vl-72b raise, naming the ROADMAP
+item that ports them.
 """
 import argparse
 import time

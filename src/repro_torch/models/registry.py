@@ -2,13 +2,13 @@
 ``repro.models.registry``: ``--arch <id>`` -> config + model functions.
 
 ``build(cfg, device=)`` returns the serving function set of the dense
-decoder and mixture-of-experts families:
+decoder, mixture-of-experts, ssm (xlstm) and hybrid (zamba2) families:
     init(generator) -> model                              [random init]
     prefill(model, batch, max_len=None) -> (logits, cache)
     decode(model, cache, batch, pos) -> (logits, cache)
 
-The loss (``loss_fn``) is ROADMAP A13e; the other families are later
-slices of A13 and raise, naming theirs.  ``params_from_jax`` loads the
+The loss (``loss_fn``) is ROADMAP A13e; the encoder-decoder and VLM
+families are A13d and raise, naming it.  ``params_from_jax`` loads the
 JAX package's parameters (as numpy arrays) into the port's modules, so
 that the two can be held against each other on the same weights.
 """
@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .transformer import LM, block_specs, not_ported
+from .transformer import LM, PORTED, block_specs, not_ported
 
 ARCHS = [
     "whisper_base", "zamba2_2p7b", "granite_20b", "gemma2_2b", "minicpm_2b",
@@ -93,8 +93,10 @@ def params_from_jax(cfg, tree, *, device) -> LM:
     (numpy arrays, or anything ``np.asarray`` takes): each ``group_{gi}``
     leaf's leading ``(repeat,)`` axis is unstacked into the blocks.  The
     matmul weights are held in ``cfg.dtype``, cast from the float32
-    masters as the JAX code casts them at each use; norm scales, biases
-    and the MoE router stay float32."""
+    masters as the JAX code casts them at each use; norm scales, biases,
+    the MoE router, xLSTM's gate and recurrent weights and Mamba2's
+    ``A_log``/``D``/``dt_bias`` stay float32.  The hybrid family's
+    top-level ``shared_attn`` fills the LM's one shared attention."""
     model = LM(cfg, device="meta").to_empty(device=device)
     want = dict(model.named_parameters())
     got = {}
@@ -137,8 +139,10 @@ def params_from_jax(cfg, tree, *, device) -> LM:
 
 def build(cfg, device=None) -> dict[str, Callable]:
     """The serving functions of ``cfg`` on ``device`` (the card unless
-    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``."""
-    if cfg.family not in ("dense", "moe"):
+    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``.
+    ``max_len`` sizes the attention caches; recurrent states have no
+    length."""
+    if cfg.family not in PORTED:
         raise not_ported(cfg.family)
     device = resolve_device(device)
 

@@ -1,8 +1,11 @@
 """Model assembly in plain PyTorch, the counterpart of
 ``repro.models.transformer``, for the dense decoder family (qwen2.5,
-granite, minicpm and gemma2's alternating local/global attention) and
-the mixture-of-experts family (deepseek-v2-lite's latent attention and
-leading dense layer, phi3.5-moe's GQA).
+granite, minicpm and gemma2's alternating local/global attention), the
+mixture-of-experts family (deepseek-v2-lite's latent attention and
+leading dense layer, phi3.5-moe's GQA), the ssm family (xlstm: mLSTM
+blocks with an sLSTM every ``slstm_every``) and the hybrid family
+(zamba2: Mamba2 blocks and, every ``hybrid_attn_every``, one shared
+attention block's weights with a block's own norms, MLP and KV cache).
 
 The JAX package scans each group of sub-layers ``repeat`` times over
 stacked parameters.  Eager PyTorch has nothing to gain from a scan, so
@@ -11,8 +14,8 @@ the port unrolls the groups into one list of blocks in execution order
 cache per block.  ``repro_torch.models.registry.params_from_jax`` maps
 the stacked JAX parameters onto these blocks.
 
-The other families' mixers and feed-forwards are later slices of
-ROADMAP A13 and raise, naming theirs.
+The encoder-decoder and VLM families are a later slice of ROADMAP A13
+and raise, naming it.
 """
 from __future__ import annotations
 
@@ -26,17 +29,16 @@ from torch import nn
 from .attention import MLA, Attention
 from .common import cdtype, dense_init, norm_init, rmsnorm, softcap
 from .mlp import MLP, MoE
+from .ssm import Mamba2
+from .xlstm import MLSTM, SLSTM
 
 __all__ = ["GroupSpec", "arch_groups", "Block", "LM", "LATER"]
 
+PORTED = ("dense", "moe", "ssm", "hybrid")
+RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
+
 # what each family, mixer or feed-forward the port lacks waits for
 LATER = {
-    "ssm": "A13c (SSM / hybrid / xLSTM serving)",
-    "hybrid": "A13c (SSM / hybrid / xLSTM serving)",
-    "mamba": "A13c (SSM / hybrid / xLSTM serving)",
-    "mlstm": "A13c (SSM / hybrid / xLSTM serving)",
-    "slstm": "A13c (SSM / hybrid / xLSTM serving)",
-    "shared_attn": "A13c (SSM / hybrid / xLSTM serving)",
     "encdec": "A13d (encoder-decoder and VLM serving)",
     "audio": "A13d (encoder-decoder and VLM serving)",
     "vlm": "A13d (encoder-decoder and VLM serving)",
@@ -106,21 +108,28 @@ def _norm(cfg, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """One sub-layer: ``ln1`` → mixer (GQA or MLA, under ``attn``) (→
-    ``post_ln1``) → residual, then ``ln2`` → MLP or MoE (→ ``post_ln2``)
-    → residual.  Norm scales in float32."""
+    """One sub-layer: ``ln1`` → mixer (→ ``post_ln1``) → residual, then
+    ``ln2`` → MLP or MoE (→ ``post_ln2``) → residual.  The mixer is GQA
+    or MLA under ``attn``; Mamba2, mLSTM or sLSTM under ``mixer``; or,
+    for ``"shared_attn"``, the LM's one shared ``Attention``, handed in
+    at each call and not held by the block.  Norm scales in float32."""
 
     def __init__(self, cfg, mixer: str, ffn: str, *, device,
                  generator=None):
         super().__init__()
-        if mixer not in ("attn", "attn_local", "mla"):
+        if mixer not in ("attn", "attn_local", "mla", "shared_attn",
+                         *RECURRENT):
             raise not_ported(mixer)
         if ffn not in ("mlp", "moe", "none"):
             raise not_ported(ffn)
-        self.cfg, self.mixer, self.ffn = cfg, mixer, ffn
+        self.cfg, self.kind, self.ffn = cfg, mixer, ffn
         self.ln1 = _norm(cfg, device)
-        mix = MLA if mixer == "mla" else Attention
-        self.attn = mix(cfg, device=device, generator=generator)
+        if mixer in RECURRENT:
+            self.mixer = RECURRENT[mixer](cfg, device=device,
+                                          generator=generator)
+        elif mixer != "shared_attn":
+            mix = MLA if mixer == "mla" else Attention
+            self.attn = mix(cfg, device=device, generator=generator)
         if ffn != "none":
             self.ln2 = _norm(cfg, device)
             if ffn == "moe":
@@ -133,16 +142,28 @@ class Block(nn.Module):
                 self.post_ln2 = _norm(cfg, device)
 
     def forward(self, x, *, cache=None, cache_pos=None, make_cache=False,
-                max_len=None):
+                max_len=None, shared=None):
         """Returns (x, cache, aux): aux is the MoE's auxiliary loss, None
-        for the other feed-forwards."""
+        for the other feed-forwards.  A recurrent mixer's cache is its
+        state: prefill (``make_cache``) returns the final state, decode
+        (``cache_pos``) returns the stepped state, and ``max_len`` does
+        not apply.  ``shared`` is the LM's shared attention."""
         cfg = self.cfg
         h = rmsnorm(self.ln1, x, eps=cfg.norm_eps,
                     zero_centered=cfg.post_norms)
-        kw = {"layer_local": True} if self.mixer == "attn_local" else {}
-        y, new_cache = self.attn(h, cache=cache, cache_pos=cache_pos,
-                                 make_cache=make_cache, max_len=max_len,
-                                 **kw)
+        if self.kind in RECURRENT:
+            if cache_pos is not None:
+                y, new_cache = self.mixer(h, state=cache)
+            elif make_cache:
+                y, new_cache = self.mixer(h, return_state=True)
+            else:
+                y, new_cache = self.mixer(h), None
+        else:
+            attn = shared if self.kind == "shared_attn" else self.attn
+            kw = {"layer_local": True} if self.kind == "attn_local" else {}
+            y, new_cache = attn(h, cache=cache, cache_pos=cache_pos,
+                                make_cache=make_cache, max_len=max_len,
+                                **kw)
         if cfg.post_norms:
             y = rmsnorm(self.post_ln1, y, eps=cfg.norm_eps,
                         zero_centered=True)
@@ -165,14 +186,16 @@ class Block(nn.Module):
 class LM(nn.Module):
     """The decoder (``init_lm`` and ``forward_lm`` of the JAX package):
     ``embed`` (V, d) and ``lm_head`` (d, V, untied only) in the compute
-    dtype, ``final_norm`` in float32, and ``layers`` in execution order.
+    dtype, ``final_norm`` in float32, the hybrid family's one
+    ``shared_attn`` (every ``"shared_attn"`` block runs it), and
+    ``layers`` in execution order.
     Each tensor is drawn from ``generator`` in float32 and cast before
     the next is drawn, so at most one float32 tensor lives at a time.
     On the ``meta`` device nothing is allocated."""
 
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in PORTED:
             raise not_ported(cfg.family)
         self.cfg = cfg
         dt = cdtype(cfg)
@@ -184,6 +207,9 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(dense_init(
                 (cfg.d_model, cfg.vocab), generator=generator,
                 device=device, dtype=dt), requires_grad=False)
+        if cfg.family == "hybrid":
+            self.shared_attn = Attention(cfg, device=device,
+                                         generator=generator)
         self.layers = nn.ModuleList(
             Block(cfg, m, f, device=device, generator=generator)
             for (_, _, _, m, f) in block_specs(cfg))
@@ -193,7 +219,8 @@ class LM(nn.Module):
         """Returns (logits, caches, aux), as ``forward_lm`` does: the
         caches are a list, one per block, when ``make_cache`` (prefill,
         each of ``max_len`` positions) or ``cache`` (decode at
-        ``cache_pos``, written in place) is given, else None; aux is the
+        ``cache_pos``: attention caches written in place, recurrent
+        states replaced) is given, else None; aux is the
         sum of the MoE blocks' auxiliary losses (float32, 0 for the
         dense family)."""
         cfg = self.cfg
@@ -202,13 +229,15 @@ class LM(nn.Module):
         if cfg.post_norms:  # gemma-style input scaling, the factor in dt
             x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
                                  device=x.device)
+        shared = getattr(self, "shared_attn", None)
         new_caches = []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, layer in enumerate(self.layers):
             x, nc, aux = layer(
                 x, cache=cache[i] if cache is not None else None,
                 cache_pos=cache_pos,
-                make_cache=make_cache or cache is not None, max_len=max_len)
+                make_cache=make_cache or cache is not None, max_len=max_len,
+                shared=shared)
             new_caches.append(nc)
             if aux is not None:
                 aux_total = aux_total + aux

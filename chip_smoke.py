@@ -122,6 +122,32 @@ is present, or when the port is not next to it.  Phases:
                capacity factor E/k so that no pair is dropped (tolerance
                2e-4); both MoE smoke configs with each ``moe_impl`` on
                the card against the CPU, float32 (tolerance 1e-4).
+ 15. serving-ssm — the recurrent families (Mamba2's chunked SSD,
+               mLSTM, sLSTM, zamba2's shared attention: PyTorch ops), in
+               a process of its own: zamba2-2.7b and xlstm-1.3b at full
+               width and depth, each serving 4 requests twice with
+               identical tokens, weight bytes and parameters held
+               against ``repro``'s, a profiled decode, one 1,024-token
+               prefill with each block kind's share; cached decode
+               against a re-forward (full width cut to one unit,
+               float32, across chunk boundaries) and both smoke configs
+               on the card against the CPU.
+ 16. serving-encdec-vlm — the encoder-decoder and VLM families (the
+               encoder, cross-attention and M-RoPE are PyTorch ops, as
+               they are ``jnp`` in the JAX package), in a process of its
+               own: whisper-base at full width and depth (1,500 stub
+               frames, 30 s of audio) and qwen2-vl-72b at full width cut
+               to 16 of 80 layers (a 16 × 16 stub image and 16 text
+               tokens), bf16, each serving 4 requests of 16 prompt and 24
+               generated tokens twice with identical tokens, timed as in
+               phase 13, with a profiled decode; parameter counts held
+               against ``repro``'s at full width; cached decode against
+               a re-forward in float32 (whisper at full width and depth,
+               its cross caches still 1,500 frames long after the
+               decode; qwen2-vl at full width cut to 2 layers, its M-RoPE
+               positions continuing through the re-forward; tolerance
+               2e-4) and both smoke configs on the card against the
+               CPU, float32 (tolerance 1e-4).
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -1895,6 +1921,12 @@ SSM_WEIGHTS = {"zamba2-2.7b": (5_940_259_456, 2_969_653_408),
 SSM_CUT_LAYERS = {"zamba2-2.7b": 6, "xlstm-1.3b": 8}
 SSM_LONG_PROMPT = 1024
 SSM_TIMEOUT = 420
+ENCDEC_ARCH = "whisper-base"               # full width and depth
+VLM_ARCH = "qwen2-vl-72b"                  # full width, depth cut
+VLM_CUT_LAYERS = 16
+# repro's parameter counts at the published widths (init_encdec, init_lm)
+ENCDEC_VLM_PARAMS = {ENCDEC_ARCH: 70_611_456, VLM_ARCH: 72_706_203_648}
+ENCDEC_VLM_TIMEOUT = 420
 
 
 def load_example(name: str):
@@ -1963,37 +1995,38 @@ def _rel_err(want, got) -> float:
 
 def profile_decode(cfg, steps: int = 8) -> dict:
     """Where a decode step's time goes: ``steps`` greedy decode steps of
-    ``cfg`` (4 requests, after a 16-token prefill and 2 warm-up steps)
-    under ``torch.profiler``, against the host's clock around them (the
-    device synchronized at both ends).  Returns the wall ms, the summed
+    ``cfg`` (4 requests, after the prefill of 16 tokens with the
+    family's stub media, and 2 warm-up steps) under ``torch.profiler``,
+    against the host's clock around them (the device synchronized at
+    both ends).  Returns the wall ms, the summed
     device time of the kernels the profiler saw and their count, both
     per step (the kernels of one stream do not overlap)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import registry as reg
+    serve = load_example("serve_lm_torch")
     fns = reg.build(cfg, device="cuda")
     model = fns["init"](torch.Generator("cuda").manual_seed(0))
-    P = 16
     toks = torch.as_tensor(np.random.default_rng(0).integers(
-        1, cfg.vocab, (4, P)), device="cuda")
-    logits, cache = fns["prefill"](model, {"tokens": toks},
-                                   max_len=P + 2 + steps)
+        1, cfg.vocab, (4, 16)), device="cuda")
+    batch, T = serve.prompt_batch(cfg, model, toks)
+    logits, cache = fns["prefill"](model, batch, max_len=T + 2 + steps)
     tok = logits[:, -1].argmax(-1)
 
     def step(pos):
         nonlocal logits, cache, tok
-        logits, cache = fns["decode"](model, cache, {"tokens": tok[:, None]},
-                                      pos)
+        logits, cache = fns["decode"](
+            model, cache, serve.step_batch(cfg, tok[:, None], pos), pos)
         tok = logits[:, -1].argmax(-1)
 
-    for pos in (P, P + 1):
+    for pos in (T, T + 1):
         step(pos)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for pos in range(P + 2, P + 2 + steps):
+        for pos in range(T + 2, T + 2 + steps):
             step(pos)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2006,48 +2039,60 @@ def profile_decode(cfg, steps: int = 8) -> dict:
 
 
 def decode_vs_forward(cfg, seed: int = 1, P: int = 16,
-                      G: int = 8) -> list[float]:
+                      G: int = 8) -> tuple[list[float], dict]:
     """Cached decode against a re-forward of the whole prefix on the
-    card: 4 requests, ``P`` prompt tokens, then ``G`` steps each fed the
-    next token of a seeded sequence (``cfg``'s own dtype, random weights
-    from ``seed``); each step's relative error."""
+    card: 4 requests, ``P`` prompt tokens (with the family's stub media),
+    then ``G`` steps each fed the next token of a seeded sequence
+    (``cfg``'s own dtype, random weights from ``seed``).  Returns each
+    step's relative error and, after the last step, the lengths of the
+    attention caches by block kind."""
     import numpy as np
     import torch
     from repro_torch.models import registry as reg
+    serve = load_example("serve_lm_torch")
     fns = reg.build(cfg, device="cuda")
     model = fns["init"](torch.Generator("cuda").manual_seed(seed))
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         1, cfg.vocab, (4, P + G)), device="cuda")
-    _, cache = fns["prefill"](model, {"tokens": toks[:, :P]}, max_len=P + G)
+    batch, T = serve.prompt_batch(cfg, model, toks[:, :P])
+    _, cache = fns["prefill"](model, batch, max_len=T + G)
     errs = []
     for t in range(G):
-        dec, cache = fns["decode"](model, cache,
-                                   {"tokens": toks[:, P + t:P + t + 1]},
-                                   P + t)
-        ref, _ = fns["prefill"](model, {"tokens": toks[:, :P + t + 1]})
+        dec, cache = fns["decode"](
+            model, cache,
+            serve.step_batch(cfg, toks[:, P + t:P + t + 1], T + t), T + t)
+        ref, _ = fns["prefill"](
+            model, serve.prompt_batch(cfg, model, toks[:, :P + t + 1])[0])
         errs.append(_rel_err(ref[:, -1], dec[:, 0]))
+    lengths = {}
+    for blk, c in zip(model.layers, cache):
+        if blk.kind in ("attn", "cross_attn"):
+            lengths.setdefault(blk.kind, set()).add(c["k"].shape[1])
     del model, cache
     torch.cuda.empty_cache()
-    return errs
+    return errs, lengths
 
 
 def card_vs_cpu(cfg, P: int = 16, G: int = 8) -> tuple[float, int, int]:
-    """The same weights and tokens on the card and on the CPU: prefill
-    of 4 requests and ``G`` greedy decode steps fed the CPU's tokens.
-    Returns the largest relative error of the last logits, and at how
-    many of the ``G + 1`` steps the greedy tokens agreed."""
+    """The same weights and inputs on the card and on the CPU: prefill
+    of 4 requests of ``P`` tokens (with the family's stub media) and
+    ``G`` greedy decode steps fed the CPU's tokens.  Returns the largest
+    relative error of the last logits, and at how many of the ``G + 1``
+    steps the greedy tokens agreed."""
     import numpy as np
     import torch
     from repro_torch.models import registry as reg
-    from repro_torch.models.transformer import LM
+    serve = load_example("serve_lm_torch")
     cpu, gpu = reg.build(cfg, device="cpu"), reg.build(cfg, device="cuda")
     host = cpu["init"](torch.Generator().manual_seed(2))
-    card = LM(cfg, device="meta").to_empty(device="cuda")
+    card = reg.model_class(cfg)(cfg, device="meta").to_empty(device="cuda")
     card.load_state_dict(host.state_dict())
     toks = torch.as_tensor(np.random.default_rng(4).integers(
         1, cfg.vocab, (4, P)))
-    a, ca = cpu["prefill"](host, {"tokens": toks}, max_len=P + G)
-    b, cb = gpu["prefill"](card, {"tokens": toks}, max_len=P + G)
+    batch, T = serve.prompt_batch(cfg, host, toks)
+    a, ca = cpu["prefill"](host, batch, max_len=T + G)
+    b, cb = gpu["prefill"](card, serve.prompt_batch(cfg, card, toks.cuda())[0],
+                           max_len=T + G)
     errs, same = [], 0
     for t in range(G + 1):
         errs.append(_rel_err(a[:, -1], b[:, -1]))
@@ -2055,8 +2100,9 @@ def card_vs_cpu(cfg, P: int = 16, G: int = 8) -> tuple[float, int, int]:
         same += int(torch.equal(tok, b[:, -1].argmax(-1).cpu()))
         if t == G:
             break
-        a, ca = cpu["decode"](host, ca, {"tokens": tok[:, None]}, P + t)
-        b, cb = gpu["decode"](card, cb, {"tokens": tok[:, None]}, P + t)
+        step = serve.step_batch(cfg, tok[:, None], T + t)
+        a, ca = cpu["decode"](host, ca, step, T + t)
+        b, cb = gpu["decode"](card, cb, step, T + t)
     return max(errs), same, G + 1
 
 
@@ -2083,7 +2129,7 @@ def serving_child(out: str) -> None:
     res["params"] = reg.count_params(full)
     res["profile"] = profile_decode(full)
     torch.cuda.empty_cache()
-    res["decode_vs_forward"] = decode_vs_forward(
+    res["decode_vs_forward"], _ = decode_vs_forward(
         dataclasses.replace(full, n_layers=2, dtype="float32"))
     res["card_vs_cpu"] = {arch: card_vs_cpu(dataclasses.replace(
         reg.get_smoke_config(arch), dtype="float32"))
@@ -2130,7 +2176,7 @@ def serving_moe_child(out: str) -> None:
     torch.cuda.empty_cache()
     # no drops: at cf 1.25 a re-forward of S + 1 tokens has another
     # capacity, and drops other pairs, than the cached step
-    res["decode_vs_forward"] = decode_vs_forward(dataclasses.replace(
+    res["decode_vs_forward"], _ = decode_vs_forward(dataclasses.replace(
         deep, n_layers=2, dtype="float32",
         capacity_factor=deep.n_experts / deep.top_k))
     res["card_vs_cpu"] = {
@@ -2223,9 +2269,55 @@ def serving_ssm_child(out: str) -> None:
         r["profile"] = profile_decode(full)
         torch.cuda.empty_cache()
         r["long"] = long_prefill(full, SSM_LONG_PROMPT)
-        r["decode_vs_forward"] = decode_vs_forward(
+        r["decode_vs_forward"], _ = decode_vs_forward(
             dataclasses.replace(full, n_layers=SSM_CUT_LAYERS[arch],
                                 dtype="float32", ssm_chunk=8), G=24)
+        r["card_vs_cpu"] = card_vs_cpu(dataclasses.replace(
+            reg.get_smoke_config(arch), dtype="float32"))
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def serving_encdec_vlm_child(out: str) -> None:
+    """Phase 16's work, in a process of its own: whisper-base at full
+    width and depth through ``serve_lm_torch.main`` twice; qwen2-vl-72b
+    at full width cut to ``VLM_CUT_LAYERS`` layers through
+    ``serve_lm_torch.serve`` twice (the example's prompts); a profile of
+    each one's decode; cached decode against a re-forward, float32, at
+    whisper's full width and depth and at qwen2-vl's full width cut to 2
+    layers; both smoke configs on the card against the CPU, float32.
+    Writes its results to ``out`` (pickle)."""
+    use_src()
+    import dataclasses
+    import pickle
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as reg
+    serve = load_example("serve_lm_torch")
+    res = {}
+    whisper = reg.get_config(ENCDEC_ARCH)
+    vlm = reg.get_config(VLM_ARCH)
+    cut = dataclasses.replace(vlm, n_layers=VLM_CUT_LAYERS)
+    prompts = np.random.default_rng(0).integers(1, cut.vocab, (4, 16))
+    for cfg, run in ((whisper, lambda: serve.main(
+            ["--arch", ENCDEC_ARCH, "--full", "--device", "cuda"])),
+            (cut, lambda: serve.serve(cut, prompts, 24, device="cuda"))):
+        runs = []
+        for _ in range(2):
+            runs.append(run())
+            torch.cuda.empty_cache()
+        full = reg.get_config(cfg.name)
+        r = res[cfg.name] = {"runs": runs, "vocab": cfg.vocab,
+                             "layers": cfg.n_layers, "of": full.n_layers,
+                             "full_params": reg.count_params(full),
+                             "params": reg.count_params(cfg)}
+        r["profile"] = profile_decode(cfg)
+        torch.cuda.empty_cache()
+    for arch, cfg in ((ENCDEC_ARCH, whisper),
+                      (VLM_ARCH, dataclasses.replace(vlm, n_layers=2))):
+        r = res[arch]
+        r["decode_vs_forward"], r["cache_lengths"] = decode_vs_forward(
+            dataclasses.replace(cfg, dtype="float32"))
         r["card_vs_cpu"] = card_vs_cpu(dataclasses.replace(
             reg.get_smoke_config(arch), dtype="float32"))
     with open(out, "wb") as f:
@@ -2418,6 +2510,68 @@ def phase_serving_ssm(card: str) -> None:
     say(f"phase 15 serving-ssm: {secs:.1f}s")
 
 
+def phase_serving_encdec_vlm(card: str) -> None:
+    """Phase 16: the encoder-decoder and VLM families' serving path
+    (whisper's encoder and cross-attention, qwen2-vl's M-RoPE: PyTorch
+    ops, as they are ``jnp`` in the JAX package), in a spawned process,
+    timed out and killed after ``ENCDEC_VLM_TIMEOUT`` seconds."""
+    import torch
+    from repro_torch.models import registry as reg
+    torch.cuda.empty_cache()
+    say(f"phase 16 serving-encdec-vlm: the miner's process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    res, secs = run_child("phase 16", serving_encdec_vlm_child,
+                          ENCDEC_VLM_TIMEOUT)
+    whisper = reg.get_config(ENCDEC_ARCH)
+    media = {ENCDEC_ARCH: f"{whisper.encoder_frames} stub frames (30 s of "
+                          f"audio) and 16 prompt tokens",
+             VLM_ARCH: "a 16 x 16 stub image and 16 text tokens (272 "
+                       "M-RoPE positions)"}
+    reforward = {ENCDEC_ARCH: "6 layers, the frames re-encoded at each "
+                              "re-forward",
+                 VLM_ARCH: "cut to 2 layers, the M-RoPE positions "
+                           "continuing through the re-forward"}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        r = res[arch]
+        check_serves(f"phase 16 {arch}", r["runs"], r["vocab"])
+        check(r["full_params"] == ENCDEC_VLM_PARAMS[arch],
+              f"phase 16 {arch}: {r['full_params']} parameters at full "
+              f"width, repro has {ENCDEC_VLM_PARAMS[arch]}")
+        depth = (f"{r['layers']} layers" if r["layers"] == r["of"] else
+                 f"depth cut to {r['layers']} of {r['of']} layers (the "
+                 f"{r['full_params'] * 2 / 1e9:.2f} GB of bf16 weights of "
+                 f"all {r['of']} do not fit the card)")
+        for i, (_, s) in enumerate(r["runs"]):
+            say_serve(f"phase 16 serving {arch} full width, {depth}, bf16 "
+                      f"({card}), {media[arch]}, serve {i + 1}", s,
+                      f"{r['params']} parameters; {r['full_params']} at "
+                      f"full depth, as repro counts")
+        say(f"phase 16 serving {arch}: the two serves' tokens are "
+            f"identical; req 0 -> {r['runs'][0][0][0][:12].tolist()}")
+        say_profile(f"phase 16 {arch}", card, r["profile"])
+        errs = r["decode_vs_forward"]
+        check(max(errs) <= 2e-4,
+              f"phase 16 {arch}: cached decode against re-forward, errors "
+              f"{errs}")
+        lens = {k: sorted(v) for k, v in r["cache_lengths"].items()}
+        say(f"phase 16 decode = re-forward: {arch} full width, "
+            f"{reforward[arch]}, float32, 8 cached steps against a "
+            f"re-forward of the prefix: max |diff| / max(1, max |logit|) = "
+            f"{max(errs):.3g} (tolerance 2e-4); attention cache lengths "
+            f"after the decode {lens}")
+        err, same, n = r["card_vs_cpu"]
+        check(err <= 1e-4, f"phase 16: {arch} card against CPU {err}")
+        say(f"phase 16 card = CPU: {arch} smoke config, float32, prefill + "
+            f"8 decode steps: max rel err {err:.3g} (tolerance 1e-4), "
+            f"greedy tokens equal at {same} of {n} steps")
+    lens = res[ENCDEC_ARCH]["cache_lengths"]
+    check(lens == {"attn": {24}, "cross_attn": {whisper.encoder_frames}},
+          f"phase 16 {ENCDEC_ARCH}: cache lengths {lens} after the decode "
+          f"(self-attention 16 + 8, cross-attention "
+          f"{whisper.encoder_frames} frames)")
+    say(f"phase 16 serving-encdec-vlm: {secs:.1f}s")
+
+
 def long_chunk(arch: str) -> int:
     """The chunk ``pick_chunk`` gives the long prompt at ``arch``'s
     default ``ssm_chunk``."""
@@ -2513,6 +2667,7 @@ def main() -> int:
         phase_serving(card)
         phase_serving_moe(card)
         phase_serving_ssm(card)
+        phase_serving_encdec_vlm(card)
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1

@@ -1,2 +1,3 @@
 """The LM substrate in plain PyTorch (ROADMAP A13): the serving path of
-the dense decoder and mixture-of-experts families."""
+every family of the JAX package's ``repro.models`` (dense decoder, VLM,
+mixture-of-experts, ssm, hybrid and encoder-decoder)."""

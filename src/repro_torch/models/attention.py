@@ -1,6 +1,7 @@
 """Attention in plain PyTorch, the counterpart of
 ``repro.models.attention``: the GQA layer (bias, softcap, sliding
-window) with its train, prefill and decode modes, and deepseek-v2's
+window, Qwen2-VL's M-RoPE) with its train, prefill and decode modes and
+its cross mode (whisper's encoder and decoder), and deepseek-v2's
 multi-head latent attention (MLA).
 
 Scores and softmax run in float32 as in the JAX package.  A masked
@@ -11,11 +12,12 @@ ones and decode the materializing one (``mha``'s dispatch rule).
 
 Cache contract (per layer): GQA ``{"k": (B, T, Kv, dh), "v": (B, T,
 Kv, dh)}``; MLA ``{"ckv": (B, T, kv_lora), "kr": (B, T, rope_dim)}``,
-the compressed latent and the shared-head rope key.  Decode writes the
-new entries into the caller's cache in place at ``cache_pos`` and
-attends over ``kv_len = cache_pos + S``.
-
-Cross-attention (ROADMAP A13d) is not ported yet.
+the compressed latent and the shared-head rope key; cross ``{"k": (B,
+F, Kv, dh), "v": ...}``, the keys and values of the F encoder frames.
+Decode writes the new entries into the caller's cache in place at
+``cache_pos`` and attends over ``kv_len = cache_pos + S``; it reads a
+cross cache and never writes it, and no cross cache is sized by
+``max_len``.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import (apply_rope, cdtype, dense_init, norm_init, project,
-                     rmsnorm, rope_table, softcap)
+from .common import (apply_rope, cdtype, dense_init, mrope_table,
+                     norm_init, project, rmsnorm, rope_table, softcap)
 
 __all__ = ["NEG_INF", "Attention", "MLA", "chunked_mha", "plain_mha",
            "mha"]
@@ -163,13 +165,23 @@ class Attention(nn.Module):
                 setattr(self, name, _param(torch.zeros(
                     (heads, dh), dtype=torch.float32, device=device)))
 
-    def forward(self, x, *, layer_local: bool = False,
+    def forward(self, x, *, layer_local: bool = False, positions3=None,
                 cache: Optional[dict] = None, cache_pos: Optional[int] = None,
-                make_cache: bool = False, max_len: Optional[int] = None):
+                make_cache: bool = False, max_len: Optional[int] = None,
+                is_cross: bool = False, cross_inputs=None):
         """Modes: train (``cache=None``) -> (y, None); prefill
         (``make_cache``) -> (y, cache of ``max_len`` positions, default
         S, the first S written); decode (``cache`` + ``cache_pos``) ->
-        (y, the same cache, written at ``cache_pos``)."""
+        (y, the same cache, written at ``cache_pos``).  Rope is M-RoPE
+        from ``positions3`` (3, B, S) when ``cfg.mrope_sections`` is set
+        and ``positions3`` is given, else plain rope from ``cache_pos``
+        (0 when None) on.
+
+        Cross (``is_cross``): keys and values from ``cross_inputs`` (B,
+        F, d) — prefill, ``make_cache`` returns them as the cross cache,
+        F long whatever ``max_len`` is — or, when it is None, from
+        ``cache`` (decode: read, returned as it is); no rope, no causal
+        mask."""
         cfg = self.cfg
         B, S, _ = x.shape
         dh = cfg.head_dim
@@ -180,9 +192,32 @@ class Attention(nn.Module):
         q = project(x, self.wq.to(dt))
         if cfg.qkv_bias:
             q = q + self.bq.to(dt)
-        base = 0 if cache_pos is None else cache_pos
-        positions = (base + torch.arange(S, device=x.device))[None, :]
-        sin, cos = rope_table(positions.expand(B, S), dh, cfg.rope_theta)
+
+        if is_cross:
+            # encoder-side k/v: no rope, no causal mask
+            if cross_inputs is not None:
+                k = project(cross_inputs, self.wk.to(dt))
+                v = project(cross_inputs, self.wv.to(dt))
+                if cfg.qkv_bias:
+                    k, v = k + self.bk.to(dt), v + self.bv.to(dt)
+                new_cache = {"k": k, "v": v} if make_cache else cache
+            else:  # decode: the cross cache built at prefill
+                k, v = cache["k"], cache["v"]
+                new_cache = cache
+            o = mha(q, k, v, scale=scale, causal=False, window=None,
+                    cap=cfg.attn_softcap, schedule=schedule)
+            y = project(o.reshape(B, S, -1),
+                        self.wo.to(dt).reshape(-1, cfg.d_model))
+            return y, new_cache
+
+        if cfg.mrope_sections is not None and positions3 is not None:
+            sin, cos = mrope_table(positions3, dh, cfg.rope_theta,
+                                   cfg.mrope_sections)
+        else:
+            base = 0 if cache_pos is None else cache_pos
+            positions = (base + torch.arange(S, device=x.device))[None, :]
+            sin, cos = rope_table(positions.expand(B, S), dh,
+                                  cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = project(x, self.wk.to(dt))
         v = project(x, self.wv.to(dt))

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 __all__ = ["cdtype", "dense_init", "norm_init", "project", "rmsnorm",
-           "rope_table", "apply_rope", "softcap"]
+           "layernorm", "rope_table", "mrope_table", "apply_rope",
+           "apply_mrope", "softcap"]
 
 
 def cdtype(cfg) -> torch.dtype:
@@ -65,6 +66,21 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, eps: float = 1e-6,
     return (y * scale).to(dt)
 
 
+def layernorm(scale: torch.Tensor, x: torch.Tensor, *,
+              bias: Optional[torch.Tensor] = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm (population variance) computed in float32 and cast back
+    to ``x``'s dtype; ``bias`` is added after the scale when given."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, correction=0)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale
+    if bias is not None:
+        out = out + bias
+    return out.to(dt)
+
+
 def rope_table(positions: torch.Tensor, dim: int, theta: float
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """(sin, cos) tables for ``positions`` (..., S) -> (..., S, dim/2),
@@ -74,6 +90,28 @@ def rope_table(positions: torch.Tensor, dim: int, theta: float
     freqs = 1.0 / (theta ** exps)
     angles = positions[..., None].float() * freqs
     return torch.sin(angles), torch.cos(angles)
+
+
+def mrope_table(positions3: torch.Tensor, dim: int, theta: float,
+                sections) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE's (sin, cos) tables: the rotary half is split into
+    (t, h, w) ``sections``, each with its own slice of the frequencies
+    (``theta ** (-2i / dim)`` for i in the section, in float32) and its
+    own position stream.  ``positions3``: (3, B, S) -> (B, S, dim/2)."""
+    d2 = dim // 2
+    if sum(sections) != d2:
+        raise ValueError(f"mrope sections {tuple(sections)} != dim/2 {d2}")
+    sins, coss = [], []
+    start = 0
+    for i, width in enumerate(sections):
+        exps = torch.arange(start, start + width, dtype=torch.float32,
+                            device=positions3.device) * 2.0 / dim
+        freqs = 1.0 / (theta ** exps)
+        angles = positions3[i][..., None].float() * freqs
+        sins.append(torch.sin(angles))
+        coss.append(torch.cos(angles))
+        start += width
+    return torch.cat(sins, -1), torch.cat(coss, -1)
 
 
 def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
@@ -86,6 +124,14 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     if s.ndim < x1.ndim:  # (S, D/2) -> broadcast batch
         s, c = s[None], c[None]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, dim: int,
+                theta: float, sections) -> torch.Tensor:
+    """M-RoPE: rotate-half ``x`` (B, S, H, D) by ``mrope_table``'s
+    tables.  Text tokens carry the same t/h/w position on all three
+    axes, which makes it plain rope."""
+    return apply_rope(x, *mrope_table(positions3, dim, theta, sections))
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

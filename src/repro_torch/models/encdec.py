@@ -1,0 +1,80 @@
+"""Encoder-decoder assembly in plain PyTorch (whisper-base), the
+counterpart of ``repro.models.encdec``.
+
+The audio conv frontend is a stub, as in the JAX package: the encoder
+takes precomputed mel-frame embeddings (B, F, d_model) and runs a
+non-causal transformer over them; the decoder is ``transformer.LM``,
+whose cross-attention blocks attend to the encoder's output.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+from .attention import Attention
+from .common import cdtype, rmsnorm
+from .mlp import MLP
+from .transformer import LM, _norm
+
+__all__ = ["Encoder", "EncDec"]
+
+
+class EncoderLayer(nn.Module):
+    """``ln1`` → non-causal self-attention (the cross mode over its own
+    normed input) → residual, ``ln2`` → MLP → residual."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _norm(cfg, device)
+        self.attn = Attention(cfg, device=device, generator=generator)
+        self.ln2 = _norm(cfg, device)
+        self.mlp = MLP(cfg, device=device, generator=generator)
+
+    def forward(self, x):
+        eps = self.cfg.norm_eps
+        h = rmsnorm(self.ln1, x, eps=eps)
+        y, _ = self.attn(h, is_cross=True, cross_inputs=h)
+        x = x + y
+        return x + self.mlp(rmsnorm(self.ln2, x, eps=eps))
+
+
+class Encoder(nn.Module):
+    """``encoder_layers`` layers, then ``final_norm`` (float32)."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, device=device, generator=generator)
+            for _ in range(cfg.encoder_layers))
+        self.final_norm = _norm(cfg, device)
+
+    def forward(self, frames):
+        """frames (B, F, d_model), cast to the compute dtype -> the
+        encoder's output (B, F, d_model)."""
+        x = frames.to(cdtype(self.cfg))
+        for layer in self.layers:
+            x = layer(x)
+        return rmsnorm(self.final_norm, x, eps=self.cfg.norm_eps)
+
+
+class EncDec(LM):
+    """``init_encdec``'s model: the decoder ``LM`` (its embedding, head
+    and blocks) plus ``encoder``."""
+
+    def __init__(self, cfg, *, device, generator=None):
+        super().__init__(cfg, device=device, generator=generator)
+        self.encoder = Encoder(cfg, device=device, generator=generator)
+
+    def encode(self, frames):
+        return self.encoder(frames)
+
+    def forward(self, tokens, *, frames=None, encoder_out=None, **kw):
+        """``forward_encdec``: encodes ``frames`` unless ``encoder_out``
+        is given, then runs the decoder (``LM.forward``'s ``cache``,
+        ``cache_pos``, ``make_cache``, ``max_len``, ``last_logit_only``).
+        Decode passes neither: the cross caches built at prefill hold
+        the encoder's keys and values."""
+        if encoder_out is None and frames is not None:
+            encoder_out = self.encode(frames)
+        return super().forward(tokens, encoder_out=encoder_out, **kw)

@@ -1,14 +1,14 @@
 """Architecture registry in plain PyTorch, the counterpart of
 ``repro.models.registry``: ``--arch <id>`` -> config + model functions.
 
-``build(cfg, device=)`` returns the serving function set of the dense
-decoder, mixture-of-experts, ssm (xlstm) and hybrid (zamba2) families:
+``build(cfg, device=)`` returns the serving function set of every
+family: the dense decoder, the VLM (qwen2-vl), mixture-of-experts, ssm
+(xlstm), hybrid (zamba2) and encoder-decoder (whisper) families:
     init(generator) -> model                              [random init]
     prefill(model, batch, max_len=None) -> (logits, cache)
     decode(model, cache, batch, pos) -> (logits, cache)
 
-The loss (``loss_fn``) is ROADMAP A13e; the encoder-decoder and VLM
-families are A13d and raise, naming it.  ``params_from_jax`` loads the
+The loss (``loss_fn``) is ROADMAP A13e.  ``params_from_jax`` loads the
 JAX package's parameters (as numpy arrays) into the port's modules, so
 that the two can be held against each other on the same weights.
 """
@@ -20,7 +20,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .transformer import LM, PORTED, block_specs, not_ported
+from .encdec import EncDec
+from .transformer import LM, block_specs
 
 ARCHS = [
     "whisper_base", "zamba2_2p7b", "granite_20b", "gemma2_2b", "minicpm_2b",
@@ -38,7 +39,8 @@ _ALIASES = {
 }
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "build",
-           "count_params", "list_archs", "params_from_jax", "resolve_device"]
+           "count_params", "list_archs", "model_class", "params_from_jax",
+           "resolve_device"]
 
 
 def list_archs() -> list[str]:
@@ -71,6 +73,12 @@ def resolve_device(device=None) -> torch.device:
 
 # ---------------------------------------------------------------------------
 
+def model_class(cfg) -> type:
+    """The family's module: ``EncDec`` for the encoder-decoder family
+    (whisper's ``audio``), ``LM`` for every other."""
+    return EncDec if cfg.family in ("encdec", "audio") else LM
+
+
 def count_params(cfg, active_only: bool = False) -> int:
     """Exact parameter count from the model's parameter shapes on the
     ``meta`` device (nothing is allocated).  ``active_only`` counts only
@@ -78,7 +86,7 @@ def count_params(cfg, active_only: bool = False) -> int:
     the expert parameters are those under ``moe`` other than ``shared``
     and ``router``."""
     total = expert = 0
-    for name, p in LM(cfg, device="meta").named_parameters():
+    for name, p in model_class(cfg)(cfg, device="meta").named_parameters():
         total += p.numel()
         keys = name.split(".")
         if "moe" in keys and "shared" not in keys and "router" not in keys:
@@ -89,15 +97,17 @@ def count_params(cfg, active_only: bool = False) -> int:
 
 
 def params_from_jax(cfg, tree, *, device) -> LM:
-    """The port's model holding the JAX ``init_lm`` parameters ``tree``
-    (numpy arrays, or anything ``np.asarray`` takes): each ``group_{gi}``
-    leaf's leading ``(repeat,)`` axis is unstacked into the blocks.  The
-    matmul weights are held in ``cfg.dtype``, cast from the float32
-    masters as the JAX code casts them at each use; norm scales, biases,
-    the MoE router, xLSTM's gate and recurrent weights and Mamba2's
+    """The port's model holding the JAX ``init_lm`` (``init_encdec``)
+    parameters ``tree`` (numpy arrays, or anything ``np.asarray``
+    takes): each ``group_{gi}`` leaf's leading ``(repeat,)`` axis is
+    unstacked into the blocks, and ``encoder.layers``' leading
+    ``(encoder_layers,)`` axis into the encoder's layers.  The matmul
+    weights are held in ``cfg.dtype``, cast from the float32 masters as
+    the JAX code casts them at each use; norm scales, biases, the MoE
+    router, xLSTM's gate and recurrent weights and Mamba2's
     ``A_log``/``D``/``dt_bias`` stay float32.  The hybrid family's
     top-level ``shared_attn`` fills the LM's one shared attention."""
-    model = LM(cfg, device="meta").to_empty(device=device)
+    model = model_class(cfg)(cfg, device="meta").to_empty(device=device)
     want = dict(model.named_parameters())
     got = {}
 
@@ -118,6 +128,10 @@ def params_from_jax(cfg, tree, *, device) -> LM:
     for key, node in tree.items():
         if key.startswith("group_"):
             groups[int(key[len("group_"):])] = node
+        elif key == "encoder":
+            walk("encoder.final_norm", node["final_norm"])
+            for j in range(cfg.encoder_layers):
+                walk(f"encoder.layers.{j}", node["layers"], j)
         else:
             walk(key, node)
     for i, (gi, r, li, _, _) in enumerate(block_specs(cfg)):
@@ -139,26 +153,42 @@ def params_from_jax(cfg, tree, *, device) -> LM:
 
 def build(cfg, device=None) -> dict[str, Callable]:
     """The serving functions of ``cfg`` on ``device`` (the card unless
-    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``.
-    ``max_len`` sizes the attention caches; recurrent states have no
-    length."""
-    if cfg.family not in PORTED:
-        raise not_ported(cfg.family)
+    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``, or
+    for the decoder families ``{"embeds": (B, S, d)}`` in its place,
+    with ``"positions3"`` (3, B, S) beside either (M-RoPE); the
+    encoder-decoder family's prefill batch adds ``"frames"`` (B, F, d),
+    which it encodes once into the cross caches.  ``max_len`` sizes the
+    self-attention caches; cross caches keep the F frames and recurrent
+    states have no length."""
     device = resolve_device(device)
+    cls = model_class(cfg)
+    encdec = cls is EncDec
 
     def init(generator: Optional[torch.Generator]) -> LM:
-        return LM(cfg, device=device, generator=generator)
+        return cls(cfg, device=device, generator=generator)
+
+    def inputs(batch) -> dict:
+        if encdec:
+            return {"tokens": batch["tokens"].to(device)}
+        kw = ({"embeds": batch["embeds"].to(device)} if "embeds" in batch
+              else {"tokens": batch["tokens"].to(device)})
+        if "positions3" in batch:
+            kw["positions3"] = batch["positions3"].to(device)
+        return kw
 
     @torch.no_grad()
     def prefill(model, batch, max_len: Optional[int] = None):
+        kw = inputs(batch)
+        if encdec:
+            kw["frames"] = batch["frames"].to(device)
         logits, cache, _ = model(
-            batch["tokens"].to(device), make_cache=True, max_len=max_len,
+            **kw, make_cache=True, max_len=max_len,
             last_logit_only=(cfg.prefill_logits == "last"))
         return logits, cache
 
     @torch.no_grad()
     def decode(model, cache, batch, pos: int):
-        logits, cache, _ = model(batch["tokens"].to(device), cache=cache,
+        logits, cache, _ = model(**inputs(batch), cache=cache,
                                  cache_pos=pos)
         return logits, cache
 

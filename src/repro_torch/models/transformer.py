@@ -1,11 +1,15 @@
 """Model assembly in plain PyTorch, the counterpart of
 ``repro.models.transformer``, for the dense decoder family (qwen2.5,
 granite, minicpm and gemma2's alternating local/global attention), the
-mixture-of-experts family (deepseek-v2-lite's latent attention and
-leading dense layer, phi3.5-moe's GQA), the ssm family (xlstm: mLSTM
-blocks with an sLSTM every ``slstm_every``) and the hybrid family
-(zamba2: Mamba2 blocks and, every ``hybrid_attn_every``, one shared
-attention block's weights with a block's own norms, MLP and KV cache).
+VLM family (qwen2-vl: the dense decoder fed embeddings and M-RoPE
+positions), the mixture-of-experts family (deepseek-v2-lite's latent
+attention and leading dense layer, phi3.5-moe's GQA), the ssm family
+(xlstm: mLSTM blocks with an sLSTM every ``slstm_every``), the hybrid
+family (zamba2: Mamba2 blocks and, every ``hybrid_attn_every``, one
+shared attention block's weights with a block's own norms, MLP and KV
+cache) and the decoder of the encoder-decoder family (whisper:
+self-attention, then cross-attention over the encoder's output and the
+MLP; the encoder is ``encdec.py``'s).
 
 The JAX package scans each group of sub-layers ``repeat`` times over
 stacked parameters.  Eager PyTorch has nothing to gain from a scan, so
@@ -13,9 +17,6 @@ the port unrolls the groups into one list of blocks in execution order
 (group by group, repeat by repeat, sub-layer by sub-layer) and keeps one
 cache per block.  ``repro_torch.models.registry.params_from_jax`` maps
 the stacked JAX parameters onto these blocks.
-
-The encoder-decoder and VLM families are a later slice of ROADMAP A13
-and raise, naming it.
 """
 from __future__ import annotations
 
@@ -32,23 +33,9 @@ from .mlp import MLP, MoE
 from .ssm import Mamba2
 from .xlstm import MLSTM, SLSTM
 
-__all__ = ["GroupSpec", "arch_groups", "Block", "LM", "LATER"]
+__all__ = ["GroupSpec", "arch_groups", "Block", "LM"]
 
-PORTED = ("dense", "moe", "ssm", "hybrid")
 RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
-
-# what each family, mixer or feed-forward the port lacks waits for
-LATER = {
-    "encdec": "A13d (encoder-decoder and VLM serving)",
-    "audio": "A13d (encoder-decoder and VLM serving)",
-    "vlm": "A13d (encoder-decoder and VLM serving)",
-    "cross_attn": "A13d (encoder-decoder and VLM serving)",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ROADMAP {LATER[what]}, not "
-                               f"ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,18 +97,19 @@ def _norm(cfg, device) -> nn.Parameter:
 class Block(nn.Module):
     """One sub-layer: ``ln1`` → mixer (→ ``post_ln1``) → residual, then
     ``ln2`` → MLP or MoE (→ ``post_ln2``) → residual.  The mixer is GQA
-    or MLA under ``attn``; Mamba2, mLSTM or sLSTM under ``mixer``; or,
-    for ``"shared_attn"``, the LM's one shared ``Attention``, handed in
-    at each call and not held by the block.  Norm scales in float32."""
+    (self- or cross-attention) or MLA under ``attn``; Mamba2, mLSTM or
+    sLSTM under ``mixer``; or, for ``"shared_attn"``, the LM's one shared
+    ``Attention``, handed in at each call and not held by the block.
+    Norm scales in float32."""
 
     def __init__(self, cfg, mixer: str, ffn: str, *, device,
                  generator=None):
         super().__init__()
-        if mixer not in ("attn", "attn_local", "mla", "shared_attn",
-                         *RECURRENT):
-            raise not_ported(mixer)
+        if mixer not in ("attn", "attn_local", "cross_attn", "mla",
+                         "shared_attn", *RECURRENT):
+            raise ValueError(mixer)
         if ffn not in ("mlp", "moe", "none"):
-            raise not_ported(ffn)
+            raise ValueError(ffn)
         self.cfg, self.kind, self.ffn = cfg, mixer, ffn
         self.ln1 = _norm(cfg, device)
         if mixer in RECURRENT:
@@ -142,12 +130,16 @@ class Block(nn.Module):
                 self.post_ln2 = _norm(cfg, device)
 
     def forward(self, x, *, cache=None, cache_pos=None, make_cache=False,
-                max_len=None, shared=None):
+                max_len=None, shared=None, positions3=None,
+                encoder_out=None):
         """Returns (x, cache, aux): aux is the MoE's auxiliary loss, None
         for the other feed-forwards.  A recurrent mixer's cache is its
         state: prefill (``make_cache``) returns the final state, decode
         (``cache_pos``) returns the stepped state, and ``max_len`` does
-        not apply.  ``shared`` is the LM's shared attention."""
+        not apply.  ``shared`` is the LM's shared attention;
+        ``positions3`` the M-RoPE positions of self-attention;
+        ``encoder_out`` what cross-attention attends to (None at decode:
+        its cache)."""
         cfg = self.cfg
         h = rmsnorm(self.ln1, x, eps=cfg.norm_eps,
                     zero_centered=cfg.post_norms)
@@ -160,7 +152,12 @@ class Block(nn.Module):
                 y, new_cache = self.mixer(h), None
         else:
             attn = shared if self.kind == "shared_attn" else self.attn
-            kw = {"layer_local": True} if self.kind == "attn_local" else {}
+            kw = {}
+            if self.kind == "cross_attn":
+                kw = {"is_cross": True, "cross_inputs": encoder_out}
+            elif self.kind in ("attn", "attn_local"):
+                kw = {"layer_local": self.kind == "attn_local",
+                      "positions3": positions3}
             y, new_cache = attn(h, cache=cache, cache_pos=cache_pos,
                                 make_cache=make_cache, max_len=max_len,
                                 **kw)
@@ -195,8 +192,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
-        if cfg.family not in PORTED:
-            raise not_ported(cfg.family)
         self.cfg = cfg
         dt = cdtype(cfg)
         self.embed = nn.Parameter(dense_init(
@@ -214,21 +209,28 @@ class LM(nn.Module):
             Block(cfg, m, f, device=device, generator=generator)
             for (_, _, _, m, f) in block_specs(cfg))
 
-    def forward(self, tokens, *, cache=None, cache_pos=None,
+    def forward(self, tokens=None, *, embeds=None, positions3=None,
+                encoder_out=None, cache=None, cache_pos=None,
                 make_cache=False, max_len=None, last_logit_only=False):
         """Returns (logits, caches, aux), as ``forward_lm`` does: the
         caches are a list, one per block, when ``make_cache`` (prefill,
-        each of ``max_len`` positions) or ``cache`` (decode at
-        ``cache_pos``: attention caches written in place, recurrent
-        states replaced) is given, else None; aux is the
-        sum of the MoE blocks' auxiliary losses (float32, 0 for the
-        dense family)."""
+        each self-attention cache of ``max_len`` positions) or ``cache``
+        (decode at ``cache_pos``: attention caches written in place,
+        recurrent states replaced, cross caches read) is given, else
+        None; aux is the sum of the MoE blocks' auxiliary losses
+        (float32, 0 for the dense family).  The input is ``tokens`` (B,
+        S) or, when given, ``embeds`` (B, S, d), cast to the compute
+        dtype and not scaled; ``positions3`` (3, B, S) are the M-RoPE
+        positions and ``encoder_out`` (B, F, d) the encoder's output."""
         cfg = self.cfg
         dt = cdtype(cfg)
-        x = F.embedding(tokens, self.embed).to(dt)
-        if cfg.post_norms:  # gemma-style input scaling, the factor in dt
-            x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
-                                 device=x.device)
+        if embeds is None:
+            x = F.embedding(tokens, self.embed).to(dt)
+            if cfg.post_norms:  # gemma-style input scaling, factor in dt
+                x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
+                                     device=x.device)
+        else:
+            x = embeds.to(dt)
         shared = getattr(self, "shared_attn", None)
         new_caches = []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -237,7 +239,8 @@ class LM(nn.Module):
                 x, cache=cache[i] if cache is not None else None,
                 cache_pos=cache_pos,
                 make_cache=make_cache or cache is not None, max_len=max_len,
-                shared=shared)
+                shared=shared, positions3=positions3,
+                encoder_out=encoder_out)
             new_caches.append(nc)
             if aux is not None:
                 aux_total = aux_total + aux

@@ -4,7 +4,8 @@ subgraphs on the paper's toy DB, the engine agreeing with ``mine_host``),
 ``mine_distributed_torch.py`` (two gloo ranks under
 ``torch.distributed.run``: a run cut at level 2, then a resumed run with
 more levels whose frequent set equals ``mine_host``) and
-``serve_lm_torch.py`` (prefill + cached greedy decode)."""
+``serve_lm_torch.py`` (prefill + cached greedy decode, every family
+with its stub media)."""
 import os
 import subprocess
 import sys
@@ -47,19 +48,10 @@ def test_mine_distributed_crash_and_resume_on_two_gloo_ranks(tmp_path):
 @pytest.mark.parametrize("arch", ["qwen2.5-14b", "gemma2-2b",
                                   "deepseek-v2-lite-16b",
                                   "phi3.5-moe-42b-a6.6b", "zamba2-2.7b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "whisper-base",
+                                  "qwen2-vl-72b"])
 def test_serve_lm_on_the_cpu(arch):
     out = _run("serve_lm_torch.py", "--device", "cpu", "--arch", arch)
     assert f"=== prefill 4x16 on {arch} (reduced, cpu) ===" in out
     assert "greedy generations (token ids), shape (4, 24):" in out
     assert "serving pipeline OK (prefill -> cached decode x23)" in out
-
-
-def test_serve_lm_raises_for_a_family_not_yet_ported():
-    proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "examples", "serve_lm_torch.py"),
-         "--device", "cpu", "--arch", "whisper-base"],
-        capture_output=True, text=True, timeout=120,
-        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
-    assert proc.returncode != 0
-    assert "audio is ROADMAP A13d" in proc.stderr

@@ -22,7 +22,7 @@ from repro_torch.models import registry as treg
 from repro_torch.models.transformer import LM
 
 DENSE = ["qwen2p5_14b", "granite_20b", "minicpm_2b", "gemma2_2b"]
-OTHER = {"whisper_base": "A13d", "qwen2_vl_72b": "A13d"}
+ENCDEC_VLM = ["whisper_base", "qwen2_vl_72b"]
 
 
 @pytest.fixture(scope="module")
@@ -84,7 +84,7 @@ def test_configs_are_copies_field_for_field(jx):
                                      base.SHAPES[name])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ENCDEC_VLM)
 def test_count_params_equals_jax_at_full_width(jx, arch):
     cfg = treg.get_config(arch)
     want = jx.registry.count_params(jx.registry.get_config(arch))
@@ -93,13 +93,31 @@ def test_count_params_equals_jax_at_full_width(jx, arch):
     assert cfg.param_count() == want
 
 
-@pytest.mark.parametrize("arch", sorted(OTHER))
-def test_families_not_ported_raise_naming_their_slice(arch):
-    cfg = treg.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=OTHER[arch]):
-        treg.build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=OTHER[arch]):
-        treg.count_params(cfg)
+@pytest.mark.parametrize("arch", ENCDEC_VLM)
+def test_encdec_and_vlm_families_build_count_and_serve(jx, arch):
+    """whisper-base (``EncDec``) and qwen2-vl-72b (``LM``) build on the
+    CPU, count their smoke configs' parameters as ``repro`` does, and
+    serve a token prompt (whisper: with stub frames) and one decode
+    step."""
+    cfg = dataclasses.replace(treg.get_smoke_config(arch), dtype="float32")
+    fns = treg.build(cfg, device="cpu")
+    model = fns["init"](torch.Generator().manual_seed(0))
+    assert type(model) is treg.model_class(cfg)
+    n = sum(p.numel() for p in model.parameters())
+    assert treg.count_params(cfg) == n == jx.registry.count_params(
+        jx.registry.get_smoke_config(arch))
+    rng = np.random.default_rng(1)
+    batch = {"tokens": _t(rng.integers(1, cfg.vocab, (2, 8)))}
+    if cfg.encoder_frames:
+        batch["frames"] = _t(rng.normal(size=(
+            2, cfg.encoder_frames, cfg.d_model)).astype(np.float32))
+    logits, cache = fns["prefill"](model, batch, max_len=9)
+    assert logits.shape == (2, 8, cfg.vocab) and len(cache) == len(
+        model.layers)
+    logits, _ = fns["decode"](model, cache, {
+        "tokens": logits[:, -1:].argmax(-1)}, 8)
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert torch.isfinite(logits).all()
 
 
 def test_build_runs_on_the_card_unless_asked_for_the_cpu():

@@ -148,6 +148,27 @@ is present, or when the port is not next to it.  Phases:
                positions continuing through the re-forward; tolerance
                2e-4) and both smoke configs on the card against the
                CPU, float32 (tolerance 1e-4).
+ 17. training — the LM training path (the loss, autograd through
+               remat, AdamW, the loop, the compressed data-parallel
+               step: PyTorch ops, as they are ``jnp`` in the JAX
+               package), in a process of its own: minicpm-2b at full
+               width and depth (40 layers, d 2,304, vocab 122,753,
+               tied, remat "block"; 2,724,880,896 float32 masters that
+               take gradients, bf16 compute) trained 10 steps of 8 x 64
+               tokens through ``repro_torch.launch.train`` at the CLI's
+               AdamW defaults (step-0 loss within 0.5 of ln V, every
+               loss and grad norm finite, peak and masters' bytes), and
+               again from the same seed (losses within 1e-6); 3 more
+               steps split by CUDA events into forward + backward and
+               AdamW, one under ``torch.profiler``; one step at lr 1e-5
+               lowers its batch's loss; 3 compressed (int8 error
+               feedback) data-parallel steps in a one-rank NCCL group at
+               full width; at full width cut to 2 layers, remat on =
+               off (bf16, 1e-5) and 2 microbatches = 1 (float32, 1e-5);
+               a float32 train step of each of the ten smoke configs on
+               the card against the CPU (loss 1e-5, gradients and
+               updated masters 1e-4); a smoke run cut at step 6 and
+               resumed from its checkpoint equals the uncut run (1e-6).
 
 Each rank of phases 8 and 9 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
@@ -1927,6 +1948,13 @@ VLM_CUT_LAYERS = 16
 # repro's parameter counts at the published widths (init_encdec, init_lm)
 ENCDEC_VLM_PARAMS = {ENCDEC_ARCH: 70_611_456, VLM_ARCH: 72_706_203_648}
 ENCDEC_VLM_TIMEOUT = 420
+TRAIN_ARCH = "minicpm-2b"                  # full width and depth
+TRAIN_PARAMS = 2_724_880_896               # repro's count_params at full width
+TRAIN_STEPS = 10
+TRAIN_BATCH = (8, 64)                      # global batch x sequence length
+TRAIN_CUT_LAYERS = 2                       # remat / microbatch checks
+TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_ckpt"
+TRAIN_TIMEOUT = 300
 
 
 def load_example(name: str):
@@ -2580,6 +2608,385 @@ def long_chunk(arch: str) -> int:
     return pick_chunk(SSM_LONG_PROMPT, reg.get_config(arch).ssm_chunk)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training
+# ---------------------------------------------------------------------------
+
+def train_args() -> list:
+    """``repro_torch.launch.train``'s arguments of the full-width run: the
+    CLI's AdamW defaults (lr 3e-3, cosine, warmup steps // 10)."""
+    B, S = TRAIN_BATCH
+    return ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq-len",
+            str(S), "--global-batch", str(B), "--seed", "0", "--device",
+            "cuda"]
+
+
+def train_batch(cfg, step: int, device: str = "cuda") -> dict:
+    """The CLI's batch of ``step`` (the token pipeline, with the family's
+    stub media), as tensors on ``device``."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.train import stub_batches
+    B, S = TRAIN_BATCH
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
+    extra = stub_batches(cfg, S, B)
+    batch = dict(pipe.batch(step), **(extra(step) if extra else {}))
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def train_step_times(cfg, fns, model, opt_state, steps: int = 3) -> dict:
+    """More steps of the trained model, each split by CUDA events into the
+    forward + backward pass and AdamW's update; then one step under
+    ``torch.profiler`` (its kernels and their summed device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.train_step import make_train_step
+    opt = AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS)
+    params = dict(model.named_parameters())
+    fb, up = [], []
+    for i in range(steps):
+        batch = train_batch(cfg, TRAIN_STEPS + i)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        model.zero_grad(set_to_none=True)
+        loss, _ = fns["loss_fn"](model, batch)
+        loss.backward()
+        ev[1].record()
+        _, opt_state, _ = adamw_update(
+            opt, params, {n: p.grad for n, p in params.items()}, opt_state)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fb.append(ev[0].elapsed_time(ev[1]))
+        up.append(ev[1].elapsed_time(ev[2]))
+    step = make_train_step(cfg, opt, fns["loss_fn"])
+    batch = train_batch(cfg, TRAIN_STEPS + steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    return {"fwd_bwd_ms": fb, "adamw_ms": up, "wall_ms": wall_ms,
+            "device_ms": busy_us / 1e3, "kernels": len(kernels)}
+
+
+def batch_loss(fns, model, batch) -> float:
+    import torch
+    with torch.no_grad():
+        return float(fns["loss_fn"](model, batch)[0])
+
+
+def one_step_lowers_the_loss(cfg, fns, model, lr: float = 1e-5) -> tuple:
+    """The loss of one batch before and after one AdamW step on it (a
+    fresh optimizer state, constant lr ``lr``)."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    batch = train_batch(cfg, 100)
+    before = batch_loss(fns, model, batch)
+    opt = AdamWConfig(lr=lr, schedule="constant", warmup_steps=0)
+    make_train_step(cfg, opt, fns["loss_fn"])(model, init_train_state(model),
+                                              batch)
+    return before, batch_loss(fns, model, batch)
+
+
+def ddp_steps(cfg, fns, model, steps: int = 3) -> list:
+    """``steps`` compressed data-parallel steps of ``model`` in a one-rank
+    NCCL group (its address on localhost); returns the losses."""
+    import datetime
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import (init_error_state,
+                                               make_train_step_ddp)
+    from repro_torch.train.train_step import init_train_state
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        opt = AdamWConfig(lr=3e-4, schedule="constant", warmup_steps=0)
+        step = make_train_step_ddp(cfg, opt, fns["loss_fn"],
+                                   dist.group.WORLD, compress=True)
+        state = init_train_state(model)
+        err = init_error_state(dict(model.named_parameters()))
+        losses = []
+        for i in range(steps):
+            model, state, err, m = step(model, state, err,
+                                        train_batch(cfg, 200 + i))
+            losses.append(float(m["loss"]))
+        del err, state
+        return losses
+    finally:
+        dist.destroy_process_group()
+
+
+def grads_of(cfg, remat: str, microbatches: int, dtype: str,
+             seed: int = 5) -> tuple:
+    """The loss and float32 gradients (on the CPU) of one train step at
+    full width cut to ``TRAIN_CUT_LAYERS`` layers on the card, computed
+    in ``dtype``, no clipping, from the weights of ``seed``."""
+    import dataclasses
+    import torch
+    from repro_torch.models import registry as reg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_CUT_LAYERS, remat=remat,
+                              dtype=dtype)
+    fns = reg.build(cfg, device="cuda", masters=True)
+    model = fns["init"](torch.Generator("cuda").manual_seed(seed))
+    opt = AdamWConfig(lr=1e-5, clip_norm=None, schedule="constant",
+                      warmup_steps=0)
+    _, _, m = make_train_step(cfg, opt, fns["loss_fn"],
+                              microbatches=microbatches)(
+        model, init_train_state(model), train_batch(cfg, 0))
+    grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    del model
+    torch.cuda.empty_cache()
+    return float(m["loss"]), grads
+
+
+def max_grad_err(a: dict, b: dict) -> float:
+    return max(_rel_err(a[n], b[n]) for n in a)
+
+
+def train_card_vs_cpu(arch: str) -> tuple:
+    """One float32 train step of ``arch``'s smoke config on the card and
+    on the CPU from the same weights and batch (lr 1e-5 constant: at the
+    first step AdamW moves every weight by about lr): the loss's
+    relative error, and the largest relative error of the gradients and
+    of the updated masters."""
+    import dataclasses
+    import torch
+    from repro_torch.models import registry as reg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg = dataclasses.replace(reg.get_smoke_config(arch), dtype="float32")
+    opt = AdamWConfig(lr=1e-5, schedule="constant", warmup_steps=0)
+    host = reg.build(cfg, device="cpu", masters=True)["init"](
+        torch.Generator().manual_seed(0))
+    tree = reg.params_to_jax(cfg, host)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        fns = reg.build(cfg, device=dev, masters=True)
+        model = reg.params_from_jax(cfg, tree, device=dev, masters=True)
+        _, _, m = make_train_step(cfg, opt, fns["loss_fn"])(
+            model, init_train_state(model), train_batch(cfg, 0, dev))
+        out[dev] = (float(m["loss"]),
+                    {n: p.detach().cpu() for n, p in
+                     model.named_parameters()},
+                    {n: p.grad.cpu() if p.grad is not None
+                     else torch.zeros(p.shape)      # qwen2-vl: embeds in
+                     for n, p in model.named_parameters()})
+    (lc, pc, gc), (lg, pg, gg) = out["cpu"], out["cuda"]
+    return (abs(lg - lc) / max(1.0, abs(lc)), max_grad_err(gc, gg),
+            max_grad_err(pc, pg))
+
+
+def resume_on_card() -> tuple:
+    """minicpm's smoke config trained 12 steps uncut, and cut at step 6
+    (a checkpoint every 3 steps) then resumed: the two runs' losses of
+    steps 6-11 and the largest difference of their final masters."""
+    import shutil
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import registry as reg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    cfg = reg.get_smoke_config(TRAIN_ARCH)
+    fns = reg.build(cfg, device="cuda", masters=True)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=32, global_batch=8, seed=9)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=12)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    full = train_loop(cfg, fns, TrainLoopConfig(
+        steps=12, ckpt_every=1000, log_every=1000), opt, pipe,
+        device="cuda")
+    train_loop(cfg, fns, TrainLoopConfig(
+        steps=6, ckpt_every=3, log_every=1000, ckpt_dir=str(TRAIN_CKPT)),
+        opt, pipe, device="cuda")
+    resumed = train_loop(cfg, fns, TrainLoopConfig(
+        steps=12, ckpt_every=1000, log_every=1000,
+        ckpt_dir=str(TRAIN_CKPT)), opt, pipe, device="cuda", resume=True)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    diff = max(float((a - b).detach().abs().max()) for a, b in zip(
+        full["model"].parameters(), resumed["model"].parameters()))
+    return full["losses"][6:], resumed["losses"], resumed["steps_run"], diff
+
+
+def training_child(out: str) -> None:
+    """Phase 17's work, in a process of its own: minicpm-2b at full width
+    and depth trained ``TRAIN_STEPS`` steps through the CLI
+    (``repro_torch.launch.train.main``: float32 masters, bf16 compute,
+    remat "block", the token pipeline, AdamW at the CLI's defaults),
+    then more steps timed and profiled, one step at a small constant lr
+    on one batch, three compressed data-parallel steps in a one-rank
+    NCCL group; a second run from the same seed; remat on and off and
+    one or two microbatches at full width cut to ``TRAIN_CUT_LAYERS``
+    layers; the ten smoke configs' train step on the card against the
+    CPU; a smoke run cut and resumed on the card.  Writes its results to
+    ``out`` (pickle)."""
+    use_src()
+    import pickle
+    import torch
+    from repro_torch.launch import train as cli
+    from repro_torch.models import registry as reg
+    full = reg.get_config(TRAIN_ARCH)
+    res = {"params": reg.count_params(full), "layers": full.n_layers,
+           "d_model": full.d_model, "vocab": full.vocab,
+           "remat_mode": full.remat, "tied": full.tie_embeddings}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = cli.main(train_args())
+    res["run_s"] = time.perf_counter() - t0
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    model = run["model"]
+    res["master_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    res["masters_float32"] = all(p.dtype == torch.float32
+                                 and p.requires_grad
+                                 for p in model.parameters())
+    res["losses"], res["grad_norms"] = run["losses"], run["grad_norms"]
+    fns = reg.build(full, device="cuda", masters=True)
+    res["times"] = train_step_times(full, fns, model, run["opt"])
+    del run
+    torch.cuda.empty_cache()
+    res["one_step"] = one_step_lowers_the_loss(full, fns, model)
+    torch.cuda.empty_cache()
+    res["ddp"] = ddp_steps(full, fns, model)
+    res["ddp_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    again = cli.main(train_args())
+    res["losses_again"] = again["losses"]
+    del again
+    torch.cuda.empty_cache()
+    cut = {key: grads_of(full, *key) for key in (
+        ("block", 1, "bfloat16"), ("none", 1, "bfloat16"),
+        ("block", 1, "float32"), ("block", 2, "float32"))}
+    res["remat"] = (
+        abs(cut["block", 1, "bfloat16"][0] - cut["none", 1, "bfloat16"][0]),
+        max_grad_err(cut["none", 1, "bfloat16"][1],
+                     cut["block", 1, "bfloat16"][1]))
+    res["microbatches"] = (
+        abs(cut["block", 2, "float32"][0] - cut["block", 1, "float32"][0]),
+        max_grad_err(cut["block", 1, "float32"][1],
+                     cut["block", 2, "float32"][1]))
+    del cut
+    res["card_vs_cpu"] = {arch: train_card_vs_cpu(arch)
+                          for arch in reg.ARCHS}
+    res["resume"] = resume_on_card()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_training(card: str) -> None:
+    """Phase 17: training (the loss, autograd through remat, AdamW, the
+    loop with its checkpoints and the compressed data-parallel step are
+    PyTorch ops, as they are ``jnp`` in the JAX package; no kernel of the
+    miner), in a spawned process, timed out and killed after
+    ``TRAIN_TIMEOUT`` seconds."""
+    import math
+    import torch
+    torch.cuda.empty_cache()
+    say(f"phase 17 training: the miner's process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB of the card")
+    res, secs = run_child("phase 17", training_child, TRAIN_TIMEOUT)
+    B, S = TRAIN_BATCH
+    check(res["params"] == TRAIN_PARAMS,
+          f"phase 17: {res['params']} parameters, repro has {TRAIN_PARAMS}")
+    check(res["masters_float32"], "phase 17: the masters are not float32 "
+                                  "parameters that take gradients")
+    losses, gnorms = res["losses"], res["grad_norms"]
+    ln_v = math.log(res["vocab"])
+    check(len(losses) == TRAIN_STEPS and abs(losses[0] - ln_v) <= 0.5,
+          f"phase 17: step-0 loss {losses[0]} not within 0.5 of ln V "
+          f"{ln_v:.3f}")
+    check(all(math.isfinite(x) for x in losses + gnorms),
+          f"phase 17: losses {losses}, grad norms {gnorms}")
+    say(f"phase 17 training {TRAIN_ARCH} full width and depth "
+        f"({res['layers']} layers, d {res['d_model']}, vocab "
+        f"{res['vocab']}, tied {res['tied']}, remat {res['remat_mode']!r}; "
+        f"{card}): {res['params']} parameters, float32 masters "
+        f"{res['master_bytes']} bytes, bf16 compute; {TRAIN_STEPS} steps "
+        f"of {B} x {S} tokens through repro_torch.launch.train (AdamW lr "
+        f"3e-3 cosine, warmup 1) in {res['run_s']:.2f}s; peak "
+        f"{res['peak_bytes'] / 1e9:.2f} GB")
+    say(f"phase 17 losses {[round(x, 4) for x in losses]} (ln V = "
+        f"{ln_v:.3f}); grad norms {[round(x, 3) for x in gnorms]}")
+    again = res["losses_again"]
+    dl = max(abs(a - b) / abs(a) for a, b in zip(losses, again))
+    check(dl <= 1e-6, f"phase 17: two runs from seed 0 differ by {dl}: "
+                      f"{losses} / {again}")
+    say(f"phase 17 the same seed again: losses within {dl:.3g} relative "
+        f"(tolerance 1e-6)")
+    t = res["times"]
+    fb, up = statistics.median(t["fwd_bwd_ms"]), statistics.median(
+        t["adamw_ms"])
+    say(f"phase 17 step time ({card}; CUDA events, median of "
+        f"{len(t['fwd_bwd_ms'])} steps after the run): forward + backward "
+        f"{fb:.3f} ms (each {[round(x, 3) for x in t['fwd_bwd_ms']]}), "
+        f"AdamW {up:.3f} ms (each {[round(x, 3) for x in t['adamw_ms']]}), "
+        f"step {fb + up:.3f} ms; {B * S / ((fb + up) / 1e3):.0f} tokens/s; "
+        f"reading and writing the masters, gradients and moments once "
+        f"(28 bytes a parameter) takes "
+        f"{res['params'] * 28 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    say(f"phase 17 one train step under torch.profiler ({card}): "
+        f"{t['wall_ms']:.3f} ms on the host's clock, of which the device's "
+        f"kernels {t['device_ms']:.3f} ms ({t['kernels']} kernels; busy "
+        f"share {t['device_ms'] / t['wall_ms']:.3f})")
+    before, after = res["one_step"]
+    check(after < before, f"phase 17: one step at lr 1e-5 took the batch's "
+                          f"loss from {before} to {after}")
+    say(f"phase 17 one step at constant lr 1e-5 (fresh AdamW state) on one "
+        f"batch: its loss {before:.6f} -> {after:.6f}")
+    ddp = res["ddp"]
+    check(len(ddp) == 3 and all(math.isfinite(x) for x in ddp),
+          f"phase 17: compressed DDP losses {ddp}")
+    say(f"phase 17 compressed DDP (int8 error feedback, one-rank NCCL group "
+        f"on localhost) at full width: 3 steps, losses "
+        f"{[round(x, 4) for x in ddp]}; peak {res['ddp_peak_bytes'] / 1e9:.2f}"
+        f" GB with the residuals")
+    dloss, derr = res["remat"]
+    check(dloss <= 1e-6 and derr <= 1e-5,
+          f"phase 17: remat on against off: loss {dloss}, grads {derr}")
+    say(f"phase 17 remat: {TRAIN_ARCH} full width cut to {TRAIN_CUT_LAYERS} "
+        f"layers, bf16: \"block\" against \"none\": loss |diff| {dloss:.3g}, "
+        f"gradients max |diff| / max(1, max |g|) {derr:.3g} (tolerance 1e-5)")
+    dloss, derr = res["microbatches"]
+    check(dloss <= 1e-5 and derr <= 1e-5,
+          f"phase 17: 2 microbatches against 1: loss {dloss}, grads {derr}")
+    say(f"phase 17 microbatches: {TRAIN_ARCH} full width cut to "
+        f"{TRAIN_CUT_LAYERS} layers, float32: 2 microbatches of 4 against 1 "
+        f"of 8: loss |diff| {dloss:.3g}, gradients max |diff| / max(1, max "
+        f"|g|) {derr:.3g} (tolerance 1e-5 each)")
+    for arch, (el, eg, ep) in res["card_vs_cpu"].items():
+        check(el <= 1e-5 and eg <= 1e-4 and ep <= 1e-4,
+              f"phase 17: {arch} train step card against CPU: loss {el}, "
+              f"grads {eg}, masters {ep}")
+        say(f"phase 17 card = CPU: {arch} smoke config, float32, one train "
+            f"step: loss {el:.3g} (tolerance 1e-5), gradients {eg:.3g}, "
+            f"updated masters {ep:.3g} (tolerance 1e-4, relative to max(1, "
+            f"max |x|))")
+    want, got, n, diff = res["resume"]
+    dl = max(abs(a - b) / abs(a) for a, b in zip(want, got))
+    check(n == 6 and len(got) == 6 and dl <= 1e-6 and diff <= 1e-6,
+          f"phase 17: resumed {n} steps, losses {got} against {want}, "
+          f"masters differ by {diff}")
+    say(f"phase 17 resume: {TRAIN_ARCH} smoke config on the card, cut at "
+        f"step 6 and resumed from its checkpoint: steps 6-11 losses within "
+        f"{dl:.3g} relative and final masters within {diff:.3g} of the uncut "
+        f"run's (tolerance 1e-6 each)")
+    say(f"phase 17 training: {secs:.1f}s")
+
+
 def main() -> int:
     try:
         import torch
@@ -2668,6 +3075,7 @@ def main() -> int:
         phase_serving_moe(card)
         phase_serving_ssm(card)
         phase_serving_encdec_vlm(card)
+        phase_training(card)
     except SmokeFailure as exc:
         say(f"FAIL: {exc}")
         return 1

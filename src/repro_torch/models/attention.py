@@ -27,8 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import (apply_rope, cdtype, dense_init, mrope_table,
-                     norm_init, project, rmsnorm, rope_table, softcap)
+from .common import (apply_rope, dense_init, held_dtype, mrope_table,
+                     norm_init, param, project, rmsnorm, rope_table,
+                     softcap)
 
 __all__ = ["NEG_INF", "Attention", "MLA", "chunked_mha", "plain_mha",
            "mha"]
@@ -138,22 +139,19 @@ def _check_fits(cache_pos: int, S: int, T: int) -> None:
                          f"of {T}")
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Attention(nn.Module):
     """The GQA layer: ``wq`` (d, H, dh), ``wk``/``wv`` (d, Kv, dh), ``wo``
-    (H, dh, d) in the compute dtype; ``bq``/``bk``/``bv`` in float32."""
+    (H, dh, d) in the compute dtype (float32 masters with ``masters``);
+    ``bq``/``bk``/``bv`` in float32."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
-        dh, dt = cfg.head_dim, cdtype(cfg)
+        dh, dt = cfg.head_dim, held_dtype(cfg, masters)
 
         def init(shape):
-            return _param(dense_init(shape, generator=generator,
-                                     device=device, dtype=dt))
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dt), masters)
 
         self.wq = init((cfg.d_model, cfg.n_heads, dh))
         self.wk = init((cfg.d_model, cfg.n_kv, dh))
@@ -162,8 +160,9 @@ class Attention(nn.Module):
         if cfg.qkv_bias:
             for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv),
                                 ("bv", cfg.n_kv)):
-                setattr(self, name, _param(torch.zeros(
-                    (heads, dh), dtype=torch.float32, device=device)))
+                setattr(self, name, param(torch.zeros(
+                    (heads, dh), dtype=torch.float32, device=device),
+                    masters))
 
     def forward(self, x, *, layer_local: bool = False, positions3=None,
                 cache: Optional[dict] = None, cache_pos: Optional[int] = None,
@@ -265,8 +264,8 @@ class MLA(nn.Module):
     (d, rope), ``w_uk`` (kv_lora, H, nope), ``w_uv`` (kv_lora, H, v),
     ``wo`` (H, v, d) and either ``wq`` (d, H, nope + rope) or, when
     ``q_lora`` > 0, ``w_dq`` (d, q_lora) and ``w_uq`` (q_lora, H, nope +
-    rope), in the compute dtype; ``kv_norm`` (and ``q_norm``) in
-    float32.  The init keeps the JAX fan-in rule (the first axis: H for
+    rope), in the compute dtype (float32 masters with ``masters``);
+    ``kv_norm`` (and ``q_norm``) in float32.  The init keeps the JAX fan-in rule (the first axis: H for
     ``wo``).
 
     Prefill decompresses the keys and values and runs ``mha`` with its
@@ -276,26 +275,26 @@ class MLA(nn.Module):
     latent space through ``w_uk``, scored against the latent cache in
     float32, and the latent output leaves through ``w_uv`` and ``wo``."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
-        H, d, dt = cfg.n_heads, cfg.d_model, cdtype(cfg)
+        H, d, dt = cfg.n_heads, cfg.d_model, held_dtype(cfg, masters)
         qk = cfg.qk_nope_dim + cfg.qk_rope_dim
 
         def init(shape):
-            return _param(dense_init(shape, generator=generator,
-                                     device=device, dtype=dt))
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dt), masters)
 
         self.w_dkv = init((d, cfg.kv_lora))
         self.w_kr = init((d, cfg.qk_rope_dim))
         self.w_uk = init((cfg.kv_lora, H, cfg.qk_nope_dim))
         self.w_uv = init((cfg.kv_lora, H, cfg.v_head_dim))
         self.wo = init((H, cfg.v_head_dim, d))
-        self.kv_norm = _param(norm_init(cfg.kv_lora, device))
+        self.kv_norm = param(norm_init(cfg.kv_lora, device), masters)
         if cfg.q_lora:
             self.w_dq = init((d, cfg.q_lora))
             self.w_uq = init((cfg.q_lora, H, qk))
-            self.q_norm = _param(norm_init(cfg.q_lora, device))
+            self.q_norm = param(norm_init(cfg.q_lora, device), masters)
         else:
             self.wq = init((d, H, qk))
 

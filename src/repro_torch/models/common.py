@@ -6,6 +6,10 @@ compute dtype at each use.  Serving never updates a weight, so the
 port's modules hold the matmul weights in the compute dtype once (the
 same values the cast gives at each use) and keep the norm scales and
 biases in float32, cast exactly where the JAX code casts them.
+Training holds float32 masters instead (``masters=True`` on every
+module): the same draws kept in float32, each a parameter that takes a
+gradient; every forward casts at use, so the values it computes are the
+serving path's.
 """
 from __future__ import annotations
 
@@ -13,8 +17,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["cdtype", "dense_init", "norm_init", "project", "rmsnorm",
+__all__ = ["cdtype", "held_dtype", "param", "dense_init", "norm_init", "project", "rmsnorm",
            "layernorm", "rope_table", "mrope_table", "apply_rope",
            "apply_mrope", "softcap"]
 
@@ -22,6 +27,18 @@ __all__ = ["cdtype", "dense_init", "norm_init", "project", "rmsnorm",
 def cdtype(cfg) -> torch.dtype:
     """The compute dtype ``cfg.dtype`` names ("bfloat16", "float32")."""
     return getattr(torch, cfg.dtype)
+
+
+def held_dtype(cfg, masters: bool) -> torch.dtype:
+    """The dtype a matmul weight is held in: float32 for the training
+    masters, else the compute dtype (serving)."""
+    return torch.float32 if masters else cdtype(cfg)
+
+
+def param(t: torch.Tensor, masters: bool) -> nn.Parameter:
+    """``t`` as a parameter that takes a gradient when it is a training
+    master and none when it is held for serving."""
+    return nn.Parameter(t, requires_grad=masters)
 
 
 def dense_init(shape, *, generator: Optional[torch.Generator],

@@ -13,7 +13,7 @@ from torch import nn
 from .attention import Attention
 from .common import cdtype, rmsnorm
 from .mlp import MLP
-from .transformer import LM, _norm
+from .transformer import LM, _norm, remat
 
 __all__ = ["Encoder", "EncDec"]
 
@@ -22,13 +22,14 @@ class EncoderLayer(nn.Module):
     """``ln1`` → non-causal self-attention (the cross mode over its own
     normed input) → residual, ``ln2`` → MLP → residual."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = _norm(cfg, device)
-        self.attn = Attention(cfg, device=device, generator=generator)
-        self.ln2 = _norm(cfg, device)
-        self.mlp = MLP(cfg, device=device, generator=generator)
+        kw = {"device": device, "generator": generator, "masters": masters}
+        self.ln1 = _norm(cfg, device, masters)
+        self.attn = Attention(cfg, **kw)
+        self.ln2 = _norm(cfg, device, masters)
+        self.mlp = MLP(cfg, **kw)
 
     def forward(self, x):
         eps = self.cfg.norm_eps
@@ -41,30 +42,34 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     """``encoder_layers`` layers, then ``final_norm`` (float32)."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg, device=device, generator=generator)
+            EncoderLayer(cfg, device=device, generator=generator,
+                         masters=masters)
             for _ in range(cfg.encoder_layers))
-        self.final_norm = _norm(cfg, device)
+        self.final_norm = _norm(cfg, device, masters)
 
     def forward(self, frames):
         """frames (B, F, d_model), cast to the compute dtype -> the
-        encoder's output (B, F, d_model)."""
+        encoder's output (B, F, d_model); under ``cfg.remat == "block"``
+        each layer is recomputed in the backward pass of training."""
         x = frames.to(cdtype(self.cfg))
         for layer in self.layers:
-            x = layer(x)
+            x = remat(self.cfg, layer, x)
         return rmsnorm(self.final_norm, x, eps=self.cfg.norm_eps)
 
 
 class EncDec(LM):
     """``init_encdec``'s model: the decoder ``LM`` (its embedding, head
-    and blocks) plus ``encoder``."""
+    and blocks) plus ``encoder``; ``masters`` as ``LM``'s."""
 
-    def __init__(self, cfg, *, device, generator=None):
-        super().__init__(cfg, device=device, generator=generator)
-        self.encoder = Encoder(cfg, device=device, generator=generator)
+    def __init__(self, cfg, *, device, generator=None, masters=False):
+        super().__init__(cfg, device=device, generator=generator,
+                         masters=masters)
+        self.encoder = Encoder(cfg, device=device, generator=generator,
+                               masters=masters)
 
     def encode(self, frames):
         return self.encoder(frames)

@@ -16,30 +16,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import cdtype, dense_init, project
+from .common import dense_init, held_dtype, param, project
 
 __all__ = ["MLP", "MoE", "capacity"]
 
 
-def _weight(shape, *, generator, device, dtype, scale=None) -> nn.Parameter:
-    return nn.Parameter(dense_init(shape, generator=generator, device=device,
-                                   dtype=dtype, scale=scale),
-                        requires_grad=False)
-
-
 class MLP(nn.Module):
     """``w_up`` (d, f), ``w_down`` (f, d) and, for SwiGLU, ``w_gate``
-    (d, f), held in the compute dtype."""
+    (d, f), held in the compute dtype (float32 masters with
+    ``masters``)."""
 
-    def __init__(self, cfg, *, device, generator=None, d_ff=None):
+    def __init__(self, cfg, *, device, generator=None, d_ff=None,
+                 masters=False):
         super().__init__()
         self.cfg = cfg
         d_ff = d_ff or cfg.d_ff
-        dt = cdtype(cfg)
+        dt = held_dtype(cfg, masters)
 
         def init(shape):
-            return _weight(shape, generator=generator, device=device,
-                           dtype=dt)
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dt), masters)
 
         self.w_up = init((cfg.d_model, d_ff))
         self.w_down = init((d_ff, cfg.d_model))
@@ -68,19 +64,20 @@ class MoE(nn.Module):
     its float32 masters and a bf16 router would choose other experts;
     the experts' ``w_gate``/``w_up`` (E, d, f_e) and ``w_down`` (E, f_e,
     d) and, when ``n_shared`` > 0, ``shared.w_gate``/``w_up`` (d,
-    n_shared·f_e) and ``shared.w_down``, held in the compute dtype.  The
-    init keeps the JAX fan-in rule (the first axis: E for the expert
-    tensors)."""
+    n_shared·f_e) and ``shared.w_down``, held in the compute dtype
+    (float32 masters with ``masters``).  The init keeps the JAX fan-in
+    rule (the first axis: E for the expert tensors)."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
         E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
-        dt = cdtype(cfg)
+        dt = held_dtype(cfg, masters)
 
         def init(shape, dtype=dt, scale=None):
-            return _weight(shape, generator=generator, device=device,
-                           dtype=dtype, scale=scale)
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dtype,
+                                    scale=scale), masters)
 
         self.router = init((d, E), torch.float32, scale=0.02)
         self.w_gate = init((E, d, f))

@@ -1,16 +1,21 @@
 """Architecture registry in plain PyTorch, the counterpart of
 ``repro.models.registry``: ``--arch <id>`` -> config + model functions.
 
-``build(cfg, device=)`` returns the serving function set of every
-family: the dense decoder, the VLM (qwen2-vl), mixture-of-experts, ssm
-(xlstm), hybrid (zamba2) and encoder-decoder (whisper) families:
+``build(cfg, device=)`` returns the function set of every family: the
+dense decoder, the VLM (qwen2-vl), mixture-of-experts, ssm (xlstm),
+hybrid (zamba2) and encoder-decoder (whisper) families:
     init(generator) -> model                              [random init]
+    loss_fn(model, batch) -> (loss, {"ce", "aux"})        [training]
     prefill(model, batch, max_len=None) -> (logits, cache)
     decode(model, cache, batch, pos) -> (logits, cache)
 
-The loss (``loss_fn``) is ROADMAP A13e.  ``params_from_jax`` loads the
-JAX package's parameters (as numpy arrays) into the port's modules, so
-that the two can be held against each other on the same weights.
+``build(cfg, masters=True)``'s ``init`` makes a model of float32
+masters that take gradients (training); without it the matmul weights
+are held in the compute dtype (serving).  ``params_from_jax`` loads the
+JAX package's parameters (as numpy arrays) into the port's modules and
+``params_to_jax`` gives them back in the JAX tree's layout (tests,
+training checkpoints), so that the two packages can be held against
+each other on the same weights and resume each other's runs.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ _ALIASES = {
 }
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "build",
-           "count_params", "list_archs", "model_class", "params_from_jax",
+           "count_params", "jax_layout", "leaves_from_jax", "list_archs",
+           "model_class", "params_from_jax", "params_to_jax",
            "resolve_device"]
 
 
@@ -96,52 +102,91 @@ def count_params(cfg, active_only: bool = False) -> int:
     return total
 
 
-def params_from_jax(cfg, tree, *, device) -> LM:
+# the port's parameters that are norms: each is {"scale": ...} in the
+# JAX tree
+_NORMS = frozenset({"ln1", "ln2", "post_ln1", "post_ln2", "final_norm",
+                    "kv_norm", "q_norm", "norm"})
+
+
+def jax_layout(cfg, names) -> dict[str, tuple[tuple, Optional[int]]]:
+    """Where each of the port's parameter ``names`` sits in the JAX
+    ``init_lm`` (``init_encdec``) tree: ``(path, index)``, the keys from
+    the root (strings, and the sub-layer's position in a ``group_{gi}``
+    list) and the index into the leaf's leading stacked axis (a block's
+    repeat, an encoder layer), None for an unstacked leaf.  The one
+    mapping of ``params_from_jax`` and ``params_to_jax``."""
+    specs = block_specs(cfg)
+    out = {}
+    for name in names:
+        keys = name.split(".")
+        index = None
+        if keys[0] == "layers":
+            gi, r, li, _, _ = specs[int(keys[1])]
+            path, index = (f"group_{gi}", li, *keys[2:]), r
+        elif keys[:2] == ["encoder", "layers"]:
+            path, index = ("encoder", "layers", *keys[3:]), int(keys[2])
+        else:
+            path = tuple(keys)
+        if keys[-1] in _NORMS:
+            path += ("scale",)
+        out[name] = (path, index)
+    return out
+
+
+def _leaf_paths(tree, prefix=()):
+    """The key paths of every leaf of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [prefix]
+    return [p for k, v in items for p in _leaf_paths(v, prefix + (k,))]
+
+
+def leaves_from_jax(cfg, tree, names) -> dict[str, np.ndarray]:
+    """The arrays of the JAX tree ``tree`` that ``jax_layout`` places at
+    the port's parameter ``names`` (a stacked leaf indexed at the
+    block's repeat or the encoder layer); raises when a JAX leaf has no
+    counterpart or a name has no JAX leaf."""
+    layout = jax_layout(cfg, names)
+    used = {path for path, _ in layout.values()}
+    extra = [p for p in _leaf_paths(tree) if p not in used]
+    if extra:
+        raise KeyError(f"JAX parameters {extra} have no counterpart")
+    out = {}
+    for name, (path, index) in layout.items():
+        node = tree
+        try:
+            for k in path:
+                node = node[k]
+        except (KeyError, IndexError) as e:
+            raise KeyError(f"no JAX parameter {path} for {name}") from e
+        arr = np.asarray(node)
+        out[name] = arr if index is None else arr[index]
+    return out
+
+
+def params_from_jax(cfg, tree, *, device, masters: bool = False) -> LM:
     """The port's model holding the JAX ``init_lm`` (``init_encdec``)
     parameters ``tree`` (numpy arrays, or anything ``np.asarray``
-    takes): each ``group_{gi}`` leaf's leading ``(repeat,)`` axis is
-    unstacked into the blocks, and ``encoder.layers``' leading
-    ``(encoder_layers,)`` axis into the encoder's layers.  The matmul
-    weights are held in ``cfg.dtype``, cast from the float32 masters as
-    the JAX code casts them at each use; norm scales, biases, the MoE
-    router, xLSTM's gate and recurrent weights and Mamba2's
-    ``A_log``/``D``/``dt_bias`` stay float32.  The hybrid family's
-    top-level ``shared_attn`` fills the LM's one shared attention."""
-    model = model_class(cfg)(cfg, device="meta").to_empty(device=device)
+    takes), placed by ``jax_layout``: each ``group_{gi}`` leaf's leading
+    ``(repeat,)`` axis is unstacked into the blocks, and
+    ``encoder.layers``' leading ``(encoder_layers,)`` axis into the
+    encoder's layers.  For serving the matmul weights are held in
+    ``cfg.dtype``, cast from the float32 masters as the JAX code casts
+    them at each use; norm scales, biases, the MoE router, xLSTM's gate
+    and recurrent weights and Mamba2's ``A_log``/``D``/``dt_bias`` stay
+    float32.  With ``masters`` every parameter is a float32 master that
+    takes a gradient (training).  The hybrid family's top-level
+    ``shared_attn`` fills the LM's one shared attention."""
+    model = model_class(cfg)(cfg, device="meta", masters=masters).to_empty(
+        device=device)
     want = dict(model.named_parameters())
-    got = {}
-
-    def walk(prefix, node, index=None):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                if k == "scale":       # a norm: {"scale": (d,)}
-                    walk(prefix, v, index)
-                else:
-                    walk(f"{prefix}.{k}" if prefix else k, v, index)
-        elif prefix not in want:
-            raise KeyError(f"JAX parameter {prefix} has no counterpart")
-        else:
-            arr = np.asarray(node)
-            got[prefix] = arr if index is None else arr[index]
-
-    groups = {}
-    for key, node in tree.items():
-        if key.startswith("group_"):
-            groups[int(key[len("group_"):])] = node
-        elif key == "encoder":
-            walk("encoder.final_norm", node["final_norm"])
-            for j in range(cfg.encoder_layers):
-                walk(f"encoder.layers.{j}", node["layers"], j)
-        else:
-            walk(key, node)
-    for i, (gi, r, li, _, _) in enumerate(block_specs(cfg)):
-        walk(f"layers.{i}", groups[gi][li], r)
-    missing = sorted(set(want) - set(got))
-    if missing:
-        raise KeyError(f"no JAX parameter for {missing}")
+    arrays = leaves_from_jax(cfg, tree, want)
     with torch.no_grad():
         for name, p in want.items():
-            src = torch.from_numpy(np.array(got[name]))
+            src = torch.from_numpy(np.array(arrays[name]))
             if tuple(src.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: JAX shape {tuple(src.shape)}, "
                                  f"port {tuple(p.shape)}")
@@ -149,15 +194,73 @@ def params_from_jax(cfg, tree, *, device) -> LM:
     return model
 
 
+def params_to_jax(cfg, params) -> dict:
+    """The inverse of ``params_from_jax``: the JAX ``init_lm``
+    (``init_encdec``) tree of ``params`` (a model, or a mapping from its
+    parameter names to tensors of their shapes: gradients, optimizer
+    moments) as float32 numpy arrays, the blocks stacked back into
+    ``group_{gi}`` lists of sub-layer dicts and the encoder layers into
+    ``encoder.layers``."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    stacks: dict[tuple, dict] = {}
+    for name, (path, index) in jax_layout(cfg, params).items():
+        arr = params[name].detach().to("cpu", torch.float32).numpy()
+        stacks.setdefault(path, {})[index] = arr
+    tree: dict = {}
+    for path, parts in stacks.items():
+        if None in parts:
+            leaf = parts[None]
+        else:
+            if sorted(parts) != list(range(len(parts))):
+                raise ValueError(f"{path}: stacked indices {sorted(parts)}")
+            leaf = np.stack([parts[i] for i in range(len(parts))])
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return _listify(tree)
+
+
+def _listify(node):
+    """Nested dicts whose keys are all ints 0..n-1 become lists (the
+    JAX tree's ``group_{gi}`` lists of sub-layers)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
 # ---------------------------------------------------------------------------
 
-def build(cfg, device=None) -> dict[str, Callable]:
-    """The serving functions of ``cfg`` on ``device`` (the card unless
-    the caller names another).  ``batch`` is ``{"tokens": (B, S)}``, or
-    for the decoder families ``{"embeds": (B, S, d)}`` in its place,
+def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32 plus the z-loss 1e-4·mean(logz²):
+    logz the logsumexp of each position's logits, the gold logit the
+    label's (the JAX package extracts it with a masked sum, for its
+    vocab-sharded logits; a gather gives the same value)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (logz - gold).mean()
+    return loss + 1e-4 * torch.mean(logz ** 2)
+
+
+# ---------------------------------------------------------------------------
+
+def build(cfg, device=None, *, masters: bool = False
+          ) -> dict[str, Callable]:
+    """The functions of ``cfg`` on ``device`` (the card unless the caller
+    names another); ``init`` makes float32 masters that take gradients
+    when ``masters`` (training).  ``batch`` is ``{"tokens": (B, S)}``,
+    or for the decoder families ``{"embeds": (B, S, d)}`` in its place,
     with ``"positions3"`` (3, B, S) beside either (M-RoPE); the
-    encoder-decoder family's prefill batch adds ``"frames"`` (B, F, d),
-    which it encodes once into the cross caches.  ``max_len`` sizes the
+    encoder-decoder family's batch adds ``"frames"`` (B, F, d), which
+    prefill encodes once into the cross caches.  ``loss_fn``'s batch
+    adds ``"labels"`` (B, S) and returns ``(loss, {"ce", "aux"})``: the
+    cross-entropy with its z-loss plus the MoE auxiliary loss, and (as
+    in the JAX package) ``"ce"`` is that same sum.  ``max_len`` sizes the
     self-attention caches; cross caches keep the F frames and recurrent
     states have no length."""
     device = resolve_device(device)
@@ -165,7 +268,7 @@ def build(cfg, device=None) -> dict[str, Callable]:
     encdec = cls is EncDec
 
     def init(generator: Optional[torch.Generator]) -> LM:
-        return cls(cfg, device=device, generator=generator)
+        return cls(cfg, device=device, generator=generator, masters=masters)
 
     def inputs(batch) -> dict:
         if encdec:
@@ -175,6 +278,14 @@ def build(cfg, device=None) -> dict[str, Callable]:
         if "positions3" in batch:
             kw["positions3"] = batch["positions3"].to(device)
         return kw
+
+    def loss_fn(model, batch):
+        kw = inputs(batch)
+        if encdec:
+            kw["frames"] = batch["frames"].to(device)
+        logits, _, aux = model(**kw)
+        loss = _ce_loss(logits, batch["labels"].to(device)) + aux
+        return loss, {"ce": loss, "aux": aux}
 
     @torch.no_grad()
     def prefill(model, batch, max_len: Optional[int] = None):
@@ -192,4 +303,5 @@ def build(cfg, device=None) -> dict[str, Callable]:
                                  cache_pos=pos)
         return logits, cache
 
-    return {"init": init, "prefill": prefill, "decode": decode}
+    return {"init": init, "loss_fn": loss_fn, "prefill": prefill,
+            "decode": decode}

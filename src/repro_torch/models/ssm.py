@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import cdtype, dense_init, norm_init, project, rmsnorm
+from .common import dense_init, held_dtype, norm_init, param, project, rmsnorm
 
 __all__ = ["Mamba2", "init_mamba2_state", "pick_chunk", "softplus"]
 
@@ -133,22 +133,23 @@ def init_mamba2_state(cfg, batch: int, *, device,
 class Mamba2(nn.Module):
     """``w_in`` (d, 2·d_inner + 2N + H) (z, x, B, C, dt), ``conv``
     (d_conv, d_inner + 2N) and ``w_out`` (d_inner, d) in the compute
-    dtype; ``A_log``, ``D``, ``dt_bias`` (H,) and ``norm`` (d_inner,) in
-    float32, as the JAX package uses them uncast."""
+    dtype (float32 masters with ``masters``); ``A_log``, ``D``,
+    ``dt_bias`` (H,) and ``norm`` (d_inner,) in float32, as the JAX
+    package uses them uncast."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
         d_inner, H, P, N = _dims(cfg)
-        dt = cdtype(cfg)
+        dt = held_dtype(cfg, masters)
 
         def init(shape, scale=None):
-            return nn.Parameter(dense_init(
+            return param(dense_init(
                 shape, generator=generator, device=device, dtype=dt,
-                scale=scale), requires_grad=False)
+                scale=scale), masters)
 
         def const(t):
-            return nn.Parameter(t, requires_grad=False)
+            return param(t, masters)
 
         self.w_in = init((cfg.d_model, 2 * d_inner + 2 * N + H))
         self.conv = init((cfg.d_conv, d_inner + 2 * N), scale=0.5)

@@ -26,14 +26,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import MLA, Attention
-from .common import cdtype, dense_init, norm_init, rmsnorm, softcap
+from .common import (cdtype, dense_init, held_dtype, norm_init, param,
+                     rmsnorm, softcap)
 from .mlp import MLP, MoE
 from .ssm import Mamba2
 from .xlstm import MLSTM, SLSTM
 
-__all__ = ["GroupSpec", "arch_groups", "Block", "LM"]
+__all__ = ["GroupSpec", "arch_groups", "Block", "LM", "remat"]
 
 RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
 
@@ -90,8 +92,19 @@ def block_specs(cfg) -> list[tuple[int, int, int, str, str]]:
             for li, (m, f) in enumerate(g.unit)]
 
 
-def _norm(cfg, device) -> nn.Parameter:
-    return nn.Parameter(norm_init(cfg.d_model, device), requires_grad=False)
+def _norm(cfg, device, masters=False) -> nn.Parameter:
+    return param(norm_init(cfg.d_model, device), masters)
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass instead of keeping
+    its activations when ``cfg.remat == "block"`` and autograd records
+    (training); called plainly otherwise.  Remat changes memory, never
+    values: nothing in a block draws random numbers."""
+    if cfg.remat == "block" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 class Block(nn.Module):
@@ -103,7 +116,7 @@ class Block(nn.Module):
     Norm scales in float32."""
 
     def __init__(self, cfg, mixer: str, ffn: str, *, device,
-                 generator=None):
+                 generator=None, masters=False):
         super().__init__()
         if mixer not in ("attn", "attn_local", "cross_attn", "mla",
                          "shared_attn", *RECURRENT):
@@ -111,23 +124,23 @@ class Block(nn.Module):
         if ffn not in ("mlp", "moe", "none"):
             raise ValueError(ffn)
         self.cfg, self.kind, self.ffn = cfg, mixer, ffn
-        self.ln1 = _norm(cfg, device)
+        kw = {"device": device, "generator": generator, "masters": masters}
+        self.ln1 = _norm(cfg, device, masters)
         if mixer in RECURRENT:
-            self.mixer = RECURRENT[mixer](cfg, device=device,
-                                          generator=generator)
+            self.mixer = RECURRENT[mixer](cfg, **kw)
         elif mixer != "shared_attn":
             mix = MLA if mixer == "mla" else Attention
-            self.attn = mix(cfg, device=device, generator=generator)
+            self.attn = mix(cfg, **kw)
         if ffn != "none":
-            self.ln2 = _norm(cfg, device)
+            self.ln2 = _norm(cfg, device, masters)
             if ffn == "moe":
-                self.moe = MoE(cfg, device=device, generator=generator)
+                self.moe = MoE(cfg, **kw)
             else:
-                self.mlp = MLP(cfg, device=device, generator=generator)
+                self.mlp = MLP(cfg, **kw)
         if cfg.post_norms:
-            self.post_ln1 = _norm(cfg, device)
+            self.post_ln1 = _norm(cfg, device, masters)
             if ffn != "none":
-                self.post_ln2 = _norm(cfg, device)
+                self.post_ln2 = _norm(cfg, device, masters)
 
     def forward(self, x, *, cache=None, cache_pos=None, make_cache=False,
                 max_len=None, shared=None, positions3=None,
@@ -188,26 +201,33 @@ class LM(nn.Module):
     ``layers`` in execution order.
     Each tensor is drawn from ``generator`` in float32 and cast before
     the next is drawn, so at most one float32 tensor lives at a time.
-    On the ``meta`` device nothing is allocated."""
+    With ``masters`` every tensor stays float32 and takes a gradient
+    (training).  On the ``meta`` device nothing is allocated."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
-        dt = cdtype(cfg)
-        self.embed = nn.Parameter(dense_init(
+        dt = held_dtype(cfg, masters)
+        self.embed = param(dense_init(
             (cfg.vocab, cfg.d_model), generator=generator, device=device,
-            dtype=dt, scale=0.02), requires_grad=False)
-        self.final_norm = _norm(cfg, device)
+            dtype=dt, scale=0.02), masters)
+        self.final_norm = _norm(cfg, device, masters)
         if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(dense_init(
+            self.lm_head = param(dense_init(
                 (cfg.d_model, cfg.vocab), generator=generator,
-                device=device, dtype=dt), requires_grad=False)
+                device=device, dtype=dt), masters)
         if cfg.family == "hybrid":
             self.shared_attn = Attention(cfg, device=device,
-                                         generator=generator)
+                                         generator=generator,
+                                         masters=masters)
+        specs = block_specs(cfg)
         self.layers = nn.ModuleList(
-            Block(cfg, m, f, device=device, generator=generator)
-            for (_, _, _, m, f) in block_specs(cfg))
+            Block(cfg, m, f, device=device, generator=generator,
+                  masters=masters)
+            for (_, _, _, m, f) in specs)
+        # where each unit (a repeat of a group's sub-layers) starts
+        self.units = [i for i, (_, _, li, _, _) in enumerate(specs)
+                      if li == 0] + [len(specs)]
 
     def forward(self, tokens=None, *, embeds=None, positions3=None,
                 encoder_out=None, cache=None, cache_pos=None,
@@ -221,7 +241,14 @@ class LM(nn.Module):
         (float32, 0 for the dense family).  The input is ``tokens`` (B,
         S) or, when given, ``embeds`` (B, S, d), cast to the compute
         dtype and not scaled; ``positions3`` (3, B, S) are the M-RoPE
-        positions and ``encoder_out`` (B, F, d) the encoder's output."""
+        positions and ``encoder_out`` (B, F, d) the encoder's output.
+
+        The embedding rows are gathered in float32 and then cast (the JAX
+        package casts the whole table, then gathers): the same values,
+        and a training master's gradient is scatter-added in float32
+        where the JAX package adds it in the compute dtype.  In training
+        (no cache) under ``cfg.remat == "block"`` each unit of blocks is
+        recomputed in the backward pass."""
         cfg = self.cfg
         dt = cdtype(cfg)
         if embeds is None:
@@ -232,18 +259,23 @@ class LM(nn.Module):
         else:
             x = embeds.to(dt)
         shared = getattr(self, "shared_attn", None)
-        new_caches = []
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, layer in enumerate(self.layers):
-            x, nc, aux = layer(
-                x, cache=cache[i] if cache is not None else None,
-                cache_pos=cache_pos,
-                make_cache=make_cache or cache is not None, max_len=max_len,
-                shared=shared, positions3=positions3,
-                encoder_out=encoder_out)
-            new_caches.append(nc)
-            if aux is not None:
-                aux_total = aux_total + aux
+        if cache is None and not make_cache:      # train: unit by unit
+            for a, b in zip(self.units, self.units[1:]):
+                x, aux_total = remat(cfg, self._unit, a, b, x, aux_total,
+                                     shared, positions3, encoder_out)
+            new_caches = None
+        else:
+            new_caches = []
+            for i, layer in enumerate(self.layers):
+                x, nc, aux = layer(
+                    x, cache=cache[i] if cache is not None else None,
+                    cache_pos=cache_pos, make_cache=True, max_len=max_len,
+                    shared=shared, positions3=positions3,
+                    encoder_out=encoder_out)
+                new_caches.append(nc)
+                if aux is not None:
+                    aux_total = aux_total + aux
         if last_logit_only:
             # serving prefill: only the final position's logits are
             # needed — slice BEFORE the head matmul
@@ -252,5 +284,14 @@ class LM(nn.Module):
                     zero_centered=cfg.post_norms)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = softcap(x @ head.to(dt), cfg.final_softcap)
-        return logits, (new_caches if (cache is not None or make_cache)
-                        else None), aux_total
+        return logits, new_caches, aux_total
+
+    def _unit(self, a, b, x, aux_total, shared, positions3, encoder_out):
+        """Blocks ``a`` to ``b`` (one unit) without caches (training): x
+        and the running auxiliary loss after them."""
+        for layer in self.layers[a:b]:
+            x, _, aux = layer(x, shared=shared, positions3=positions3,
+                              encoder_out=encoder_out)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .common import cdtype, dense_init, project
+from .common import dense_init, held_dtype, param, project
 from .ssm import pick_chunk, softplus
 
 __all__ = ["MLSTM", "SLSTM", "init_mlstm_state", "init_slstm_state"]
@@ -34,10 +34,6 @@ __all__ = ["MLSTM", "SLSTM", "init_mlstm_state", "init_slstm_state"]
 def _mdims(cfg):
     H = cfg.n_heads
     return H, cfg.d_model // H
-
-
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
 
 
 def _headnorm(scale, h):
@@ -63,32 +59,33 @@ def init_mlstm_state(cfg, batch: int, *, device,
 
 class MLSTM(nn.Module):
     """``wq``/``wk``/``wv``/``ogate`` (d, H, D) and ``wo`` (H, D, d) in
-    the compute dtype (``wo`` drawn at std 1/sqrt(H): the JAX fan-in is
-    the first axis); ``wi``/``wf`` (d, H), ``f_bias`` (H,) and ``norm``
-    (H, D) in float32."""
+    the compute dtype (float32 masters with ``masters``; ``wo`` drawn
+    at std 1/sqrt(H): the JAX fan-in is the first axis); ``wi``/``wf``
+    (d, H), ``f_bias`` (H,) and ``norm`` (H, D) in float32."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
         H, D = _mdims(cfg)
-        d, dt = cfg.d_model, cdtype(cfg)
+        d, dt = cfg.d_model, held_dtype(cfg, masters)
 
         def init(shape, dtype=dt, scale=None):
-            return _param(dense_init(shape, generator=generator,
-                                     device=device, dtype=dtype,
-                                     scale=scale))
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dtype,
+                                    scale=scale), masters)
 
         self.wq = init((d, H, D))
         self.wk = init((d, H, D))
         self.wv = init((d, H, D))
         self.wi = init((d, H), torch.float32, scale=0.02)
         self.wf = init((d, H), torch.float32, scale=0.02)
-        self.f_bias = _param(torch.full((H,), 3.0, dtype=torch.float32,
-                                        device=device))  # open forget gates
+        self.f_bias = param(torch.full((H,), 3.0, dtype=torch.float32,
+                                       device=device),
+                            masters)                     # open forget gates
         self.wo = init((H, D, d))
         self.ogate = init((d, H, D), scale=0.02)
-        self.norm = _param(torch.ones((H, D), dtype=torch.float32,
-                                      device=device))
+        self.norm = param(torch.ones((H, D), dtype=torch.float32,
+                                     device=device), masters)
 
     def _gates(self, x):
         """The input gate i and log sigmoid of the forget gate, (B, S, H),
@@ -208,28 +205,28 @@ def init_slstm_state(cfg, batch: int, *, device,
 
 
 class SLSTM(nn.Module):
-    """``w_zifo`` (d, 4, H, D) and ``wo`` (H, D, d) in the compute dtype;
-    ``r_zifo`` (4, H, D, D), ``b_zifo`` (4, H, D) and ``norm`` (H, D) in
-    float32."""
+    """``w_zifo`` (d, 4, H, D) and ``wo`` (H, D, d) in the compute dtype
+    (float32 masters with ``masters``); ``r_zifo`` (4, H, D, D),
+    ``b_zifo`` (4, H, D) and ``norm`` (H, D) in float32."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
         self.cfg = cfg
         H, D = _mdims(cfg)
-        d, dt = cfg.d_model, cdtype(cfg)
+        d, dt = cfg.d_model, held_dtype(cfg, masters)
 
         def init(shape, dtype=dt, scale=None):
-            return _param(dense_init(shape, generator=generator,
-                                     device=device, dtype=dtype,
-                                     scale=scale))
+            return param(dense_init(shape, generator=generator,
+                                    device=device, dtype=dtype,
+                                    scale=scale), masters)
 
         self.w_zifo = init((d, 4, H, D))
         self.r_zifo = init((4, H, D, D), torch.float32, scale=0.02)
-        self.b_zifo = _param(torch.zeros((4, H, D), dtype=torch.float32,
-                                         device=device))
+        self.b_zifo = param(torch.zeros((4, H, D), dtype=torch.float32,
+                                        device=device), masters)
         self.wo = init((H, D, d))
-        self.norm = _param(torch.ones((H, D), dtype=torch.float32,
-                                      device=device))
+        self.norm = param(torch.ones((H, D), dtype=torch.float32,
+                                     device=device), masters)
 
     def _step(self, xt, st):
         """One step with the full stabilizer.  xt: (B, 4, H, D), the

@@ -113,8 +113,8 @@ is present, or when the port is not next to it.  Phases:
                depth (27 layers, MLA, 64 routed experts top-6 + 2 shared,
                bf16, float32 routers) through ``serve_lm_torch.py
                --full``, and phi3.5-moe at full width with its depth cut
-               to 8 of 32 layers (its 83.75 GB of bf16 weights do not fit
-               the card), each serving 4 requests of 16 prompt and 24
+               to 4 of 32 layers (its 83.75 GB of bf16 weights do not fit
+               the card; 4, not 8, for the run's time), each serving 4 requests of 16 prompt and 24
                generated tokens twice, with identical tokens, timed as in
                phase 13; deepseek's decode under ``torch.profiler``;
                cached decode against a re-forward at deepseek's full
@@ -137,7 +137,7 @@ is present, or when the port is not next to it.  Phases:
                they are ``jnp`` in the JAX package), in a process of its
                own: whisper-base at full width and depth (1,500 stub
                frames, 30 s of audio) and qwen2-vl-72b at full width cut
-               to 16 of 80 layers (a 16 × 16 stub image and 16 text
+               to 8 of 80 layers (a 16 × 16 stub image and 16 text
                tokens), bf16, each serving 4 requests of 16 prompt and 24
                generated tokens twice with identical tokens, timed as in
                phase 13, with a profiled decode; parameter counts held
@@ -158,7 +158,9 @@ is present, or when the port is not next to it.  Phases:
                tokens through ``repro_torch.launch.train`` at the CLI's
                AdamW defaults (step-0 loss within 0.5 of ln V, every
                loss and grad norm finite, peak and masters' bytes), and
-               again from the same seed (losses within 1e-6); 3 more
+               its first 3 steps again from the same seed through
+               ``train_loop`` with the CLI's config (losses within
+               1e-6); 3 more
                steps split by CUDA events into forward + backward and
                AdamW, one under ``torch.profiler``; one step at lr 1e-5
                lowers its batch's loss; 3 compressed (int8 error
@@ -168,9 +170,38 @@ is present, or when the port is not next to it.  Phases:
                a float32 train step of each of the ten smoke configs on
                the card against the CPU (loss 1e-5, gradients and
                updated masters 1e-4); a smoke run cut at step 6 and
-               resumed from its checkpoint equals the uncut run (1e-6).
+               resumed from its checkpoint equals the uncut run (1e-6);
+               last, ``train_loop(mesh=)`` on a 1×1 ("data", "model")
+               mesh over a one-rank NCCL group: minicpm-2b at full width
+               and depth, 2 steps with the CLI run's pipeline and AdamW,
+               losses equal to the CLI run's first 2 (1e-6), its peak —
+               the mesh path (DTensor masters, use-site gathers, shard
+               hints, sharded loss and optimizer) at full depth on the
+               production backend, degenerate as a mesh (every placement
+               ``Replicate``).
+ 18. mesh    — FSDP + tensor parallelism: 4 gloo ranks on cuda:0 (NCCL
+               refuses several ranks on one card) as a 2×2 ("data",
+               "model") mesh, minicpm-2b at full width cut to 2 layers,
+               float32, 1 step of 8 x 64 tokens through
+               ``train_loop(mesh=)`` at lr 1e-5, against the same step
+               unsharded on every rank (losses and gradient norms 1e-5
+               relative; each rank's shards of the clipped gradients
+               1e-4 of the tensor's largest unsharded gradient, and of
+               the final masters 0.5 lr, from the unsharded run's
+               blocks); each rank's master bytes
+               (held to the specs' share), peak and step seconds, the
+               placements of one unit's ``wq``, ``w_up`` and the tied
+               embedding.  Gloo stages every gather and reduce-scatter
+               through host memory: the step time is a correctness
+               check's, not a speed.
 
-Each rank of phases 8 and 9 carries its group's collective timeout and
+A run clock bounds the whole: no phase starts after ``RUN_DEADLINE``
+(1,100 s from the start; it fails "FAIL: phase N not started, ..."),
+every spawned phase and rank group's timeout is cut to what is left
+less ``RUN_MARGIN``, each phase prints "phase N: X s (run Y s)", and
+all phases' seconds are printed as one JSON line before the kernels'.
+
+Each rank of phases 8, 9 and 18 carries its group's collective timeout and
 is killed when its phase outlasts it, so a rank that raises fails the
 phase instead of hanging it; gloo stages phase 8's collectives through
 host memory.
@@ -178,13 +209,20 @@ host memory.
 Every main run counts kernel launches (set to 0 just before the run,
 read just after) and checks the frequent set against ``mine_host``
 (phases 6, 7 and 10 against phase 4's oracle result); the two main
-databases' oracles run in processes of their own, beside the card's
-work.  The single-sync runs
+databases and their oracles are made in a pool of processes started
+with the script, beside the card's work.  The single-sync runs
 (4, 5, 6) run every level dispatch under
 ``torch.cuda.set_sync_debug_mode("error")`` so that the wire fetch is
 the level's only device→host transfer, and require every level's audit
-word to be 0.  After phases 4, 5 and 6 a second fit of the same
-database, cut to level 2 and not counted, hands its level-2 kernel
+word to be 0.  Every fit of one database in the script's process
+shares one host prep (partitions, edge OLs, level-1 OLs, kept by
+``prep_memo``): the 40K DB's, made by phase 4's fit, from phase 4 to
+phase 10 (run in the order 4, 11, 6, 7, 10); the 80K DB's, made in a
+thread beside phase 8's ranks, in phase 5, which runs after phase 8.
+A fit's seconds after the first are the card's levels and the fit's
+own host work.  After phases 4, 5 and 6 a
+second fit of the same database, cut to level 2 and not counted,
+hands its level-2 kernel
 inputs to the kernels and their plain versions, which must agree and
 are both timed (CUDA events; a kernel over batches of 10 back-to-back
 launches, so that the wrapper's host work hides behind the device's),
@@ -234,6 +272,46 @@ class SmokeFailure(RuntimeError):
 
 def say(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+RUN_DEADLINE = 1100.0   # seconds from the script's start for every phase
+RUN_MARGIN = 20.0       # what a clipped timeout leaves for the phase's end
+
+
+class RunClock:
+    """The run's clock: a phase starts only before ``RUN_DEADLINE``, every
+    spawned phase and rank group gets at most what is left of it less
+    ``RUN_MARGIN``, and each phase's seconds are printed and kept, so
+    that an overrun fails with the phase's name instead of outliving
+    the run's limit."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def used(self) -> float:
+        return time.perf_counter() - self.t0
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        used = self.used()
+        check(used < RUN_DEADLINE,
+              f"{name} not started, {used:.1f} s of the run used")
+        t = time.perf_counter()
+        yield
+        secs = time.perf_counter() - t
+        self.seconds[name] = round(self.seconds.get(name, 0.0) + secs, 3)
+        say(f"{name}: {secs:.1f} s (run {self.used():.1f} s)")
+
+    def clip(self, label: str, timeout: float) -> float:
+        """``timeout`` cut to what is left of the run less the margin."""
+        left = RUN_DEADLINE - self.used() - RUN_MARGIN
+        check(left > 0, f"{label} not started, {self.used():.1f} s of the "
+                        f"run used")
+        return min(timeout, left)
+
+
+CLOCK = RunClock()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -766,16 +844,95 @@ def phase_many_triples(want) -> None:
         f"kernel launches {launches}; equal to mine_host")
 
 
-def make_db(label: str, n_graphs: int, seed: int):
-    import numpy as np
+def generate_db(n_graphs: int, seed: int):
+    """``pubchem_like_db(n_graphs, seed)`` and the seconds it took (run in
+    the process pool, beside the card's work)."""
+    use_src()
     from repro_torch.core.graphdb import pubchem_like_db
     t0 = time.perf_counter()
     graphs = pubchem_like_db(n_graphs, seed=seed, avg_edges=28)
+    return graphs, time.perf_counter() - t0
+
+
+def make_db(label: str, future):
+    """The graphs ``generate_db`` made in the pool (``future``), once
+    ready; says their size."""
+    import numpy as np
+    t0 = time.perf_counter()
+    graphs, secs = future.result()
     n_edges = [g.n_edges for g in graphs]
-    say(f"phase {label}: pubchem_like_db({n_graphs}, seed={seed}, "
-        f"avg_edges=28): mean {np.mean(n_edges):.2f} edges, max "
-        f"{max(n_edges)} ({time.perf_counter() - t0:.1f}s to generate)")
+    say(f"phase {label}: pubchem_like_db({len(graphs)}, avg_edges=28): "
+        f"mean {np.mean(n_edges):.2f} edges, max {max(n_edges)} ({secs:.1f}s "
+        f"to generate in the pool, {time.perf_counter() - t0:.1f}s to wait "
+        f"and load)")
     return graphs
+
+
+@contextlib.contextmanager
+def prep_memo():
+    """``Mirage.fit``'s host prep (partitions, edge OLs, level-1 OLs:
+    ``make_partitions``, ``build_edge_ol``, ``level1_ol``) kept by the
+    identity and values of its inputs while the context is open, and
+    reused when the same inputs come again.  The first fit of a DB fills
+    it; every later fit of the same DB and config in the context (the
+    second fit cut to level 2, the device loop, the two-launch, legacy
+    and supervised runs) reuses the same host arrays instead of
+    computing them again (tens of seconds of host work a fit at 40K).
+    The fits only read them.  Emptied on leaving."""
+    import repro_torch.core.mining as mining
+    # which positional argument is an object, keyed (and kept alive) by
+    # identity; the others are small values, keyed by their repr
+    by_id = {"make_partitions": 0, "build_edge_ol": 0, "level1_ol": 1}
+    orig = {n: getattr(mining, n) for n in by_id}
+    kept = {}
+
+    def memo(name):
+        def call(*args, **kw):
+            obj = args[by_id[name]]
+            rest = [a for i, a in enumerate(args) if i != by_id[name]]
+            key = (name, id(obj), repr(rest), repr(sorted(kw.items())))
+            if key not in kept:
+                kept[key] = (obj, orig[name](*args, **kw))
+            return kept[key][1]
+        return call
+
+    for n in by_id:
+        setattr(mining, n, memo(n))
+    try:
+        yield
+    finally:
+        for n in by_id:
+            setattr(mining, n, orig[n])
+        kept.clear()
+
+
+class PrepBeside:
+    """``Mirage.fit``'s host prep of ``graphs`` under ``MAIN_CFG`` made in
+    a thread of this process, into the open ``prep_memo``, while the
+    card's work of other processes runs (phase 8's ranks): a fit on the
+    CPU cut at level 1 builds the partitions, edge OLs and level-1 OLs
+    with the arguments a full fit passes, and mines nothing.  ``join``
+    waits for it and raises what it raised."""
+
+    def __init__(self, graphs):
+        import threading
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(graphs,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, graphs) -> None:
+        import repro_torch.core.mining as mining
+        try:
+            mining.Mirage(mining.MirageConfig(**{**MAIN_CFG, "max_size": 1}),
+                          device="cpu").fit(graphs)
+        except BaseException as exc:     # re-raised by join
+            self.error = exc
+
+    def join(self) -> None:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
 
 
 @contextlib.contextmanager
@@ -833,9 +990,10 @@ def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
     check it against ``mine_host`` (``want``: the result, or the future
     of the oracle process computing it beside the fit); returns (result,
     launches, seconds, want, peak bytes).  Nothing of the run is
-    held past a level, so the peak memory and the survivor caps are the
-    miner's own.  A single-sync run has every level dispatch under sync
-    debug mode 'error' and must make one wire fetch per level."""
+    held past a level on the card, so the peak memory and the survivor
+    caps are the miner's own (its host prep is kept while a
+    ``prep_memo`` is open).  A single-sync run has every level dispatch under
+    sync debug mode 'error' and must make one wire fetch per level."""
     import torch
     import repro_torch.core.mining as mining
 
@@ -1278,7 +1436,7 @@ def phase_device_loop_main(graphs40, want40, single_sync, card: str) -> None:
         f"{pass2}, share of pass 2 on slots past the survivors "
         f"{masked}")
     say(f"phase 11 device-loop 40K beside phase 4's single-sync: fit "
-        f"{secs:.2f}s vs {secs4:.2f}s, Σ level s "
+        f"{secs:.2f}s (on phase 4's host prep) vs {secs4:.2f}s, Σ level s "
         f"{sum(st.seconds for st in res.stats):.2f} vs {level_s:.2f}, "
         f"peak {peak} vs {peak4} bytes, candidates per level "
         f"{[st.n_candidates for st in res.stats]}, frequent "
@@ -1306,7 +1464,8 @@ def phase_device_loop_main(graphs40, want40, single_sync, card: str) -> None:
 def level2_inputs(graphs, wrapped: str, **cfg_kw):
     """The arguments of the ``kernels.ops`` function ``wrapped`` at level 2
     of the main run's database, from a second fit cut to level 2 after
-    the measured one (its launches are not counted)."""
+    the measured one (its launches are not counted; its host prep is the
+    main run's where a ``prep_memo`` is open)."""
     import repro_torch.core.mining as mining
     import repro_torch.kernels.ops as ops
     orig_kernel = getattr(ops, wrapped)
@@ -1320,8 +1479,8 @@ def level2_inputs(graphs, wrapped: str, **cfg_kw):
     before = launch_counts()
     setattr(ops, wrapped, capture)
     try:
-        mining.Mirage(mining.MirageConfig(**{**MAIN_CFG, "max_size": 2},
-                                          **cfg_kw)).fit(graphs)
+        mining.Mirage(mining.MirageConfig(
+            **{**MAIN_CFG, "max_size": 2}, **cfg_kw)).fit(graphs)
     finally:
         setattr(ops, wrapped, orig_kernel)
         restore_launch_counts(before)
@@ -1602,21 +1761,24 @@ def rank_main(rank: int, world: int, backend: str, store: str, runs,
 
 
 def spawn_ranks(label: str, world: int, backend: str, runs,
-                timeout: float) -> list[dict]:
+                timeout: float, target=None) -> list[dict]:
     """Run ``runs`` on ``world`` ranks of a ``backend`` group, each rank a
     spawned process on cuda:0; every collective of the group gives up
     after ``timeout`` seconds and every rank is killed when the phase
     takes longer than that, so that a rank that raises fails the phase
-    instead of hanging it.  Returns each rank's results."""
+    instead of hanging it.  ``target`` (``rank_main``, the miner's rank,
+    by default) is each rank's function.  Returns each rank's
+    results."""
     import multiprocessing
     import pickle
+    timeout = CLOCK.clip(label, timeout)
     RANK_DIR.mkdir(parents=True, exist_ok=True)
     store = RANK_DIR / f"{label}.store"
     outs = [RANK_DIR / f"{label}.rank{r}.pkl" for r in range(world)]
     for path in (store, *outs):
         path.unlink(missing_ok=True)
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=rank_main, args=(
+    procs = [ctx.Process(target=target or rank_main, args=(
         r, world, backend, str(store), runs, str(outs[r]), timeout))
         for r in range(world)]
     for p in procs:
@@ -1930,7 +2092,7 @@ SERVE_ARCH = "qwen2.5-14b"
 SERVE_TIMEOUT = 600
 MOE_ARCH = "deepseek-v2-lite-16b"          # full width and depth
 MOE_CUT_ARCH = "phi3.5-moe-42b-a6.6b"      # full width, depth cut
-MOE_CUT_LAYERS = 8
+MOE_CUT_LAYERS = 4
 MOE_TIMEOUT = 300
 SSM_ARCHS = ("zamba2-2.7b", "xlstm-1.3b")   # full width and depth
 # the held weights' bytes and the parameters of each (repro's init_lm
@@ -1944,17 +2106,24 @@ SSM_LONG_PROMPT = 1024
 SSM_TIMEOUT = 420
 ENCDEC_ARCH = "whisper-base"               # full width and depth
 VLM_ARCH = "qwen2-vl-72b"                  # full width, depth cut
-VLM_CUT_LAYERS = 16
+VLM_CUT_LAYERS = 8
 # repro's parameter counts at the published widths (init_encdec, init_lm)
 ENCDEC_VLM_PARAMS = {ENCDEC_ARCH: 70_611_456, VLM_ARCH: 72_706_203_648}
 ENCDEC_VLM_TIMEOUT = 420
 TRAIN_ARCH = "minicpm-2b"                  # full width and depth
 TRAIN_PARAMS = 2_724_880_896               # repro's count_params at full width
 TRAIN_STEPS = 10
+TRAIN_AGAIN_STEPS = 3                      # the same seed again
 TRAIN_BATCH = (8, 64)                      # global batch x sequence length
 TRAIN_CUT_LAYERS = 2                       # remat / microbatch checks
 TRAIN_CKPT = ROOT / "build" / "chip_smoke_train_ckpt"
 TRAIN_TIMEOUT = 300
+MESH1_STEPS = 2                            # phase 17's 1x1 mesh run
+MESH_SHAPE = (2, 2)                        # phase 18: ("data", "model")
+MESH_LAYERS = 2                            # full width, depth cut
+MESH_STEPS = 1
+MESH_LR = 1e-5                             # constant; see mesh_train
+MESH_TIMEOUT = 180
 
 
 def load_example(name: str):
@@ -1995,7 +2164,8 @@ def phase_examples() -> None:
         [sys.executable, str(ROOT / "examples" / "mine_distributed_torch.py"),
          "--workers", "2", "--device", "cuda", "--ckpt-dir",
          str(EXAMPLE_CKPT), "--timeout", "240", "--group-timeout", "120"],
-        capture_output=True, text=True, timeout=600,
+        capture_output=True, text=True,
+        timeout=CLOCK.clip("phase 12 mine_distributed", 600),
         env={**os.environ, "PYTHONPATH": str(SRC)})
     secs = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
@@ -2357,6 +2527,7 @@ def run_child(label: str, target, timeout: int) -> tuple[dict, float]:
     seconds; returns the results it pickled and the seconds it took."""
     import multiprocessing
     import pickle
+    timeout = CLOCK.clip(label, timeout)
     RANK_DIR.mkdir(parents=True, exist_ok=True)
     out = RANK_DIR / f"{label.replace(' ', '')}.pkl"
     out.unlink(missing_ok=True)
@@ -2697,20 +2868,12 @@ def one_step_lowers_the_loss(cfg, fns, model, lr: float = 1e-5) -> tuple:
 def ddp_steps(cfg, fns, model, steps: int = 3) -> list:
     """``steps`` compressed data-parallel steps of ``model`` in a one-rank
     NCCL group (its address on localhost); returns the losses."""
-    import datetime
-    import socket
-    import torch
     import torch.distributed as dist
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.optim.compression import (init_error_state,
                                                make_train_step_ddp)
     from repro_torch.train.train_step import init_train_state
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
-                            world_size=1, rank=0,
-                            timeout=datetime.timedelta(seconds=120))
+    one_rank_nccl_group()
     try:
         opt = AdamWConfig(lr=3e-4, schedule="constant", warmup_steps=0)
         step = make_train_step_ddp(cfg, opt, fns["loss_fn"],
@@ -2820,6 +2983,70 @@ def resume_on_card() -> tuple:
     return full["losses"][6:], resumed["losses"], resumed["steps_run"], diff
 
 
+def one_rank_nccl_group():
+    """A one-rank NCCL group on localhost (its port free now)."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def cli_steps(cfg, steps: int, mesh=None) -> dict:
+    """``train_loop`` with the CLI run's pipeline and AdamW config
+    (cosine, warmup ``TRAIN_STEPS // 10``, ``TRAIN_STEPS`` total) for its
+    first ``steps`` steps from seed 0, on ``mesh`` or unsharded on the
+    card; returns ``train_loop``'s result."""
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import registry as reg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    B, S = TRAIN_BATCH
+    return train_loop(
+        cfg, reg.build(cfg, device="cuda", masters=True),
+        TrainLoopConfig(steps=steps, seed=0, log_every=1000),
+        AdamWConfig(lr=3e-3, schedule="cosine",
+                    warmup_steps=max(1, TRAIN_STEPS // 10),
+                    total_steps=TRAIN_STEPS),
+        TokenPipeline(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0),
+        device=None if mesh is not None else "cuda", mesh=mesh)
+
+
+def mesh_run_1x1(cfg) -> dict:
+    """``train_loop(mesh=)`` on a 1×1 ("data", "model") mesh over a
+    one-rank NCCL group: ``cfg`` (minicpm-2b at full width and depth)
+    trained ``MESH1_STEPS`` steps from seed 0 with the CLI run's
+    pipeline and AdamW config (cosine, warmup 1, ``TRAIN_STEPS`` total).
+    The mesh path (DTensor masters and moments, the use-site gathers,
+    the shard hints, the sharded loss and optimizer) at full depth on
+    the production backend; degenerate as a mesh: every axis has size
+    1, so every placement is ``Replicate`` and no collective moves
+    data."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    one_rank_nccl_group()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cli_steps(cfg, MESH1_STEPS, mesh)
+        secs = time.perf_counter() - t0
+        wq = dict(out["model"].named_parameters())["layers.0.attn.wq"]
+        res = {"losses": out["losses"], "seconds": secs,
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "wq": f"{type(wq).__name__} {tuple(wq.placements)}"}
+        del out, wq
+        torch.cuda.empty_cache()
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
 def training_child(out: str) -> None:
     """Phase 17's work, in a process of its own: minicpm-2b at full width
     and depth trained ``TRAIN_STEPS`` steps through the CLI
@@ -2863,7 +3090,7 @@ def training_child(out: str) -> None:
     res["ddp_peak_bytes"] = torch.cuda.max_memory_allocated()
     del model
     torch.cuda.empty_cache()
-    again = cli.main(train_args())
+    again = cli_steps(full, TRAIN_AGAIN_STEPS)
     res["losses_again"] = again["losses"]
     del again
     torch.cuda.empty_cache()
@@ -2882,6 +3109,8 @@ def training_child(out: str) -> None:
     res["card_vs_cpu"] = {arch: train_card_vs_cpu(arch)
                           for arch in reg.ARCHS}
     res["resume"] = resume_on_card()
+    torch.cuda.empty_cache()
+    res["mesh1"] = mesh_run_1x1(full)
     with open(out, "wb") as f:
         pickle.dump(res, f)
 
@@ -2922,10 +3151,12 @@ def phase_training(card: str) -> None:
         f"{ln_v:.3f}); grad norms {[round(x, 3) for x in gnorms]}")
     again = res["losses_again"]
     dl = max(abs(a - b) / abs(a) for a, b in zip(losses, again))
-    check(dl <= 1e-6, f"phase 17: two runs from seed 0 differ by {dl}: "
-                      f"{losses} / {again}")
-    say(f"phase 17 the same seed again: losses within {dl:.3g} relative "
-        f"(tolerance 1e-6)")
+    check(len(again) == TRAIN_AGAIN_STEPS and dl <= 1e-6,
+          f"phase 17: two runs from seed 0 differ by {dl}: {losses} / "
+          f"{again}")
+    say(f"phase 17 the same seed again (its first {TRAIN_AGAIN_STEPS} "
+        f"steps through train_loop, the CLI's config): losses within "
+        f"{dl:.3g} relative (tolerance 1e-6)")
     t = res["times"]
     fb, up = statistics.median(t["fwd_bwd_ms"]), statistics.median(
         t["adamw_ms"])
@@ -2984,7 +3215,216 @@ def phase_training(card: str) -> None:
         f"step 6 and resumed from its checkpoint: steps 6-11 losses within "
         f"{dl:.3g} relative and final masters within {diff:.3g} of the uncut "
         f"run's (tolerance 1e-6 each)")
+    m1 = res["mesh1"]
+    dl = max(abs(a - b) / abs(a)
+             for a, b in zip(losses[:MESH1_STEPS], m1["losses"]))
+    check(len(m1["losses"]) == MESH1_STEPS and dl <= 1e-6,
+          f"phase 17: the 1x1 mesh run's losses {m1['losses']} against the "
+          f"CLI run's {losses[:MESH1_STEPS]}")
+    say(f"phase 17 mesh 1x1 ({card}): {TRAIN_ARCH} at full width and depth "
+        f"through train_loop(mesh=) on a 1x1 (data, model) mesh over a "
+        f"one-rank NCCL group (degenerate: layers.0.attn.wq is {m1['wq']}): "
+        f"{MESH1_STEPS} steps in {m1['seconds']:.2f}s with init, losses "
+        f"{[round(x, 6) for x in m1['losses']]} = the CLI run's first "
+        f"{MESH1_STEPS} within {dl:.3g} relative (tolerance 1e-6); peak "
+        f"{m1['peak_bytes'] / 1e9:.2f} GB")
     say(f"phase 17 training: {secs:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: FSDP + tensor parallelism on a 2x2 mesh
+# ---------------------------------------------------------------------------
+
+def mesh_cfg():
+    import dataclasses
+    from repro_torch.models import registry as reg
+    return dataclasses.replace(reg.get_config(TRAIN_ARCH),
+                               n_layers=MESH_LAYERS, dtype="float32")
+
+
+def mesh_train(cfg, mesh=None) -> dict:
+    """``MESH_STEPS`` steps of ``cfg`` through ``train_loop`` from seed 0
+    (phase 17's pipeline; AdamW at the CLI's weight decay and clip, at a
+    constant lr ``MESH_LR``: its first step moves every weight by about
+    lr whatever the gradient's size, so a gradient that float32 rounding
+    flips moves a master by a fraction of lr), on ``mesh`` or unsharded
+    on cuda:0: the losses, the gradient norms, each step's seconds and
+    the model, whose ``.grad``s hold the last step's clipped
+    gradients."""
+    import torch
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import registry as reg
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+    B, S = TRAIN_BATCH
+    stamps = []
+
+    def stamp(step):             # called as each step starts
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return {}
+
+    out = train_loop(
+        cfg, reg.build(cfg, device="cuda", masters=True),
+        TrainLoopConfig(steps=MESH_STEPS, seed=0, log_every=1000),
+        AdamWConfig(lr=MESH_LR, schedule="constant", warmup_steps=0),
+        TokenPipeline(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0),
+        device=None if mesh is not None else "cuda", mesh=mesh,
+        extra_batch=stamp)
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    return {"losses": out["losses"], "grad_norms": out["grad_norms"],
+            "model": out["model"],
+            "step_s": [b - a for a, b in zip(stamps, stamps[1:])]}
+
+
+def mesh_rank(rank: int, world: int, backend: str, store: str, runs,
+              out: str, group_timeout: float) -> None:
+    """A rank of phase 18: joins a ``world``-rank gloo group on cuda:0,
+    trains ``mesh_cfg()`` on the ``MESH_SHAPE`` ("data", "model") mesh
+    through ``train_loop(mesh=)`` (DTensor's collectives routed through
+    c10d), then the same steps unsharded, and writes its local master
+    bytes (and the bytes the specs imply), its peak, the placements of
+    one unit's ``wq``, ``w_up`` and the tied embedding, each step's
+    seconds, both runs' losses and gradient norms, and how far its
+    shards of the last step's clipped gradients (relative to each
+    tensor's largest unsharded gradient) and of the final masters (in
+    units of lr) are from the same blocks of the unsharded run's (each
+    rank checks its own, so nothing is gathered)."""
+    use_src()
+    import datetime
+    import math
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.mesh import c10d_collectives, make_mesh
+    from repro_torch.runtime import sharding as sh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=group_timeout))
+    try:
+        with c10d_collectives():
+            cfg = mesh_cfg()
+            mesh = make_mesh(MESH_SHAPE, ("data", "model"), device="cuda")
+            torch.cuda.reset_peak_memory_stats()
+            run = mesh_train(cfg, mesh)
+            model = run["model"]
+            named = dict(model.named_parameters())
+            specs = sh.param_specs(cfg, model, mesh)
+            axes = sh.mesh_axes(mesh)
+            res = {"losses": run["losses"], "grad_norms": run["grad_norms"],
+                   "step_s": run["step_s"],
+                   "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "local_bytes": sum(p.to_local().numel() * 4
+                                      for p in named.values()),
+                   "spec_bytes": sum(
+                       p.numel() * 4 // math.prod(
+                           axes[a] for e in specs[n] if e is not None
+                           for a in ((e,) if isinstance(e, str) else e))
+                       for n, p in named.items()),
+                   "placements": {n: (str(specs[n]),
+                                      str(tuple(named[n].placements)),
+                                      tuple(named[n].to_local().shape))
+                                  for n in ("layers.0.attn.wq",
+                                            "layers.0.mlp.w_up", "embed")}}
+            del run
+            ref = mesh_train(cfg)
+            res["ref_losses"], res["ref_step_s"] = ref["losses"], ref["step_s"]
+            res["ref_grad_norms"] = ref["grad_norms"]
+            res["grad_err"], res["master_err"], res["no_grad"] = 0.0, 0.0, []
+            for n, a in ref["model"].named_parameters():
+                p = named[n]
+
+                def block(t):        # this rank's block of an unsharded tensor
+                    return distribute_tensor(t.detach(), mesh, p.placements,
+                                             src_data_rank=None).to_local()
+                if a.grad is None or p.grad is None:
+                    res["no_grad"].append(n)
+                    continue
+                err = float((block(a.grad) - p.grad.to_local()).abs().max())
+                scale = float(a.grad.abs().max())
+                res["grad_err"] = max(res["grad_err"], err / scale if scale
+                                      else 0.0 if err == 0 else math.inf)
+                res["master_err"] = max(res["master_err"], float(
+                    (block(a) - p.to_local().detach()).abs().max()) / MESH_LR)
+            del ref, model, named
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(card: str) -> None:
+    """Phase 18: FSDP + tensor parallelism over a 2×2 ("data", "model")
+    mesh of 4 gloo ranks on cuda:0 (NCCL refuses several ranks on one
+    card): minicpm-2b at full width cut to ``MESH_LAYERS`` layers, float32,
+    ``MESH_STEPS`` steps of 8 × 64 tokens through ``train_loop(mesh=)``
+    at lr ``MESH_LR``, held against the same steps unsharded on every
+    rank: losses and gradient norms 1e-5 relative; each rank's shards
+    of the last step's clipped gradients 1e-4 of the tensor's largest
+    unsharded gradient (the sharded backward and the gradients'
+    redistribution); its final master shards within lr / 2 (the
+    owned-block norm and AdamW on local shards: an update left out or
+    of the wrong sign is lr or 2 lr away; both runs start from the same
+    masters).  Gloo stages every gather and reduce-scatter through host
+    memory, so the step time is a correctness check's, not a speed."""
+    B, S = TRAIN_BATCH
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    results = spawn_ranks("phase18", world, "gloo", None, MESH_TIMEOUT,
+                          target=mesh_rank)
+    secs = time.perf_counter() - t0
+    r0 = results[0]
+    losses, ref = r0["losses"], r0["ref_losses"]
+    norms, ref_norms = r0["grad_norms"], r0["ref_grad_norms"]
+    dl = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    dn = max(abs(a - b) / abs(b) for a, b in zip(norms, ref_norms))
+    gerr = max(r["grad_err"] for r in results)
+    err = max(r["master_err"] for r in results)
+    seen = [(r["losses"], r["ref_losses"], r["grad_norms"]) for r in results]
+    check(all(x == seen[0] for x in seen),
+          f"phase 18: the ranks' losses or norms differ: {seen}")
+    check(not any(r["no_grad"] for r in results),
+          f"phase 18: no gradient for {[r['no_grad'] for r in results]}")
+    check(len(losses) == MESH_STEPS and dl <= 1e-5 and dn <= 1e-5
+          and gerr <= 1e-4 and err <= 0.5,
+          f"phase 18: 2x2 mesh losses {losses} against unsharded {ref}, "
+          f"gradient norms {norms} against {ref_norms}, gradients "
+          f"{[r['grad_err'] for r in results]}, masters (in lr) "
+          f"{[r['master_err'] for r in results]}")
+    say(f"phase 18 mesh ({card}): {TRAIN_ARCH} at full width cut to "
+        f"{MESH_LAYERS} layers, float32, on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]}"
+        f" (data, model) mesh of {world} gloo ranks on cuda:0: "
+        f"{MESH_STEPS} steps of {B} x {S} tokens through "
+        f"train_loop(mesh=), losses {[round(x, 6) for x in losses]} = "
+        f"unsharded {[round(x, 6) for x in ref]} within {dl:.3g} relative "
+        f"(tolerance 1e-5), gradient norms {[round(x, 6) for x in norms]} "
+        f"within {dn:.3g} (tolerance 1e-5), every rank's clipped gradient "
+        f"shards within {gerr:.3g} of the tensor's largest unsharded "
+        f"gradient (tolerance 1e-4) and final master shards within "
+        f"{err:.3g} lr of the unsharded masters' blocks (tolerance 0.5 "
+        f"lr, lr {MESH_LR})")
+    for name, (spec, pl, shape) in r0["placements"].items():
+        say(f"phase 18 {name}: spec {spec} -> placements {pl}, local "
+            f"shape {shape}")
+    say(f"phase 18 embed: vocab {mesh_cfg().vocab} is odd, so _fit drops "
+        f"'model' from its spec and only d_model is sharded (over data)")
+    for r, res in enumerate(results):
+        check(res["local_bytes"] == res["spec_bytes"],
+              f"phase 18 rank {r}: local masters {res['local_bytes']} bytes,"
+              f" the specs imply {res['spec_bytes']}")
+        say(f"phase 18 rank {r}: local float32 masters {res['local_bytes']} "
+            f"bytes (= the specs' share), peak "
+            f"{res['peak_bytes'] / 1e9:.2f} GB, step seconds "
+            f"{[round(x, 2) for x in res['step_s']]}")
+    say(f"phase 18 unsharded (rank 0): step seconds "
+        f"{[round(x, 2) for x in r0['ref_step_s']]}; the mesh's step time "
+        f"is gloo staging every collective through host memory: a "
+        f"correctness check, not a speed")
+    say(f"phase 18 mesh: {secs:.1f}s")
 
 
 def main() -> int:
@@ -3002,86 +3442,129 @@ def main() -> int:
     use_src()
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    t_start = time.perf_counter()
+    global CLOCK
+    CLOCK = RunClock()
+    phase = CLOCK.phase
     # the host oracle of the two main runs, each in a process of its own
     # beside the card's work (they take minutes of host time)
     pool = ProcessPoolExecutor(
-        2, mp_context=multiprocessing.get_context("spawn"))
+        4, mp_context=multiprocessing.get_context("spawn"))
     try:
-        oracle_c2 = pool.submit(oracle, C2_DB, C2_MINSUP, C2_MAX_SIZE)
-        card = phase_device()
-        phase_parity_small()
-        phase_small()
-        phase_many_triples(oracle_c2)
-        oracle40 = pool.submit(oracle, MAIN40_DB, main_minsup(40_000),
-                               MAIN_CFG["max_size"])
-        oracle80 = pool.submit(oracle, MAIN80_DB, main_minsup(80_000),
-                               MAIN_CFG["max_size"])
-        graphs40 = make_db("4 packed", 40_000, 0)
-        res4, launches4, secs4, want40, peak4 = main_run(
-            "4 packed", graphs40, True, oracle40)
-        check(launches4["fused_level_packed"] > 0,
-              "the packed kernel never launched on the main path")
-        torch.cuda.empty_cache()
-        phase_device_loop(graphs40, want40, (res4, secs4, peak4), card)
-        del res4
-        torch.cuda.empty_cache()
-        args4 = level2_inputs(graphs40, "fused_level_packed")
-        rec_packed = kernel_record("fused_level_packed", args4, True,
-                                   launches4["fused_level_packed"])
-        del args4
-        torch.cuda.empty_cache()
-        graphs80 = make_db("5 dense", 80_000, 1)
-        _, launches5, _, _, _ = main_run("5 dense", graphs80, False,
-                                         oracle80)
-        check(launches5["fused_level"] > 0,
-              "the dense kernel never launched on the main path")
-        args5 = level2_inputs(graphs80, "fused_level")
-        rec_dense = kernel_record("fused_level", args5, False,
-                                  launches5["fused_level"])
-        del args5, graphs80
-        torch.cuda.empty_cache()
-
-        res6, launches6, _, _, _ = main_run("6 two-launch", graphs40, True,
-                                         want40, backend="pallas")
-        n6 = len(res6.stats)
-        check(launches6["embedding_join"] == launches6["support_count"]
-              == n6, f"the two-launch kernels launched {launches6} times "
-                     f"on phase 6's {n6} levels (1 each per level)")
-        check(launches6["fused_level_packed"] == launches6["fused_level"]
-              == 0, "a fused kernel ran on the two-launch path")
-        args6 = level2_inputs(graphs40, "embedding_join", backend="pallas")
-        recs_two = two_launch_records(args6, launches6)
-        del args6
-        torch.cuda.empty_cache()
-
-        _, launches7, _, _, _ = main_run("7 legacy", graphs40, False,
-                                      want40, pipeline="legacy",
+        with phase("phase 1"):
+            oracle_c2 = pool.submit(oracle, C2_DB, C2_MINSUP, C2_MAX_SIZE)
+            db40 = pool.submit(generate_db, 40_000, 0)
+            oracle40 = pool.submit(oracle, MAIN40_DB, main_minsup(40_000),
+                                   MAIN_CFG["max_size"])
+            oracle80 = pool.submit(oracle, MAIN80_DB, main_minsup(80_000),
+                                   MAIN_CFG["max_size"])
+            db80 = pool.submit(generate_db, 80_000, 1)
+            card = phase_device()
+        with phase("phase 2"):
+            phase_parity_small()
+        with phase("phase 3"):
+            phase_small()
+            phase_many_triples(oracle_c2)
+        # every fit of one DB shares the first fit's host prep
+        with prep_memo():
+            with phase("phase 4"):
+                graphs40 = make_db("4 packed", db40)
+                res4, launches4, secs4, want40, peak4 = main_run(
+                    "4 packed", graphs40, True, oracle40)
+                check(launches4["fused_level_packed"] > 0,
+                      "the packed kernel never launched on the main path")
+                torch.cuda.empty_cache()
+            with phase("phase 11"):
+                phase_device_loop(graphs40, want40, (res4, secs4, peak4),
+                                  card)
+                del res4
+                torch.cuda.empty_cache()
+            with phase("phase 4"):
+                args4 = level2_inputs(graphs40, "fused_level_packed")
+                rec_packed = kernel_record(
+                    "fused_level_packed", args4, True,
+                    launches4["fused_level_packed"])
+                del args4
+                torch.cuda.empty_cache()
+            with phase("phase 6"):
+                res6, launches6, _, _, _ = main_run(
+                    "6 two-launch", graphs40, True, want40,
+                    backend="pallas")
+                n6 = len(res6.stats)
+                check(launches6["embedding_join"]
+                      == launches6["support_count"] == n6,
+                      f"the two-launch kernels launched {launches6} times "
+                      f"on phase 6's {n6} levels (1 each per level)")
+                check(launches6["fused_level_packed"]
+                      == launches6["fused_level"] == 0,
+                      "a fused kernel ran on the two-launch path")
+                args6 = level2_inputs(graphs40, "embedding_join",
                                       backend="pallas")
-        check(launches7["embedding_join"] > 0
-              and launches7["support_count"] > 0,
-              "the two-launch kernels never launched on the legacy path")
-        torch.cuda.empty_cache()
-        phase_supervised(graphs40, want40)
-        del graphs40
-        torch.cuda.empty_cache()
-
-        phase_multiworker_small()
-        phase_multiworker_shrink()
-        phase_multiworker_main(want40)
-        phase_nccl()
-        phase_examples()
-        phase_serving(card)
-        phase_serving_moe(card)
-        phase_serving_ssm(card)
-        phase_serving_encdec_vlm(card)
-        phase_training(card)
+                recs_two = two_launch_records(args6, launches6)
+                del args6
+                torch.cuda.empty_cache()
+            with phase("phase 7"):
+                _, launches7, _, _, _ = main_run(
+                    "7 legacy", graphs40, False, want40, pipeline="legacy",
+                    backend="pallas")
+                check(launches7["embedding_join"] > 0
+                      and launches7["support_count"] > 0,
+                      "the two-launch kernels never launched on the legacy "
+                      "path")
+                torch.cuda.empty_cache()
+            with phase("phase 10"):
+                phase_supervised(graphs40, want40)
+                del graphs40
+                torch.cuda.empty_cache()
+        with prep_memo():
+            with phase("phase 8"):
+                # the 80K DB's host prep beside phase 8's ranks
+                graphs80 = make_db("5 dense", db80)
+                prep80 = PrepBeside(graphs80)
+                phase_multiworker_small()
+                phase_multiworker_shrink()
+                phase_multiworker_main(want40)
+            with phase("phase 5"):
+                t = time.perf_counter()
+                prep80.join()
+                say(f"phase 5 dense: its host prep, made beside phase 8, "
+                    f"was ready {time.perf_counter() - t:.1f}s after it")
+                _, launches5, _, _, _ = main_run("5 dense", graphs80,
+                                                 False, oracle80)
+                check(launches5["fused_level"] > 0,
+                      "the dense kernel never launched on the main path")
+                args5 = level2_inputs(graphs80, "fused_level")
+                rec_dense = kernel_record("fused_level", args5, False,
+                                          launches5["fused_level"])
+                del args5, graphs80
+                torch.cuda.empty_cache()
+        with phase("phase 9"):
+            phase_nccl()
+        with phase("phase 12"):
+            phase_examples()
+        with phase("phase 13"):
+            phase_serving(card)
+        with phase("phase 14"):
+            phase_serving_moe(card)
+        with phase("phase 15"):
+            phase_serving_ssm(card)
+        with phase("phase 16"):
+            phase_serving_encdec_vlm(card)
+        with phase("phase 17"):
+            phase_training(card)
+        with phase("phase 18"):
+            phase_mesh(card)
     except SmokeFailure as exc:
-        say(f"FAIL: {exc}")
+        # on both streams: a caller that keeps only the end of standard
+        # error still sees which phase failed and when
+        for out in (sys.stdout, sys.stderr):
+            print(f"[chip_smoke] FAIL: {exc}\n[chip_smoke] phase seconds "
+                  f"so far (run {CLOCK.used():.1f} s): "
+                  f"{json.dumps(CLOCK.seconds)}", file=out, flush=True)
         return 1
     finally:
         pool.shutdown(cancel_futures=True)
-    say(f"every phase passed in {time.perf_counter() - t_start:.1f}s")
+    say(f"every phase passed in {CLOCK.used():.1f}s")
+    print(json.dumps({"phase_seconds": CLOCK.seconds}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two]}),
           flush=True)

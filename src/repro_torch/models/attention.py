@@ -21,18 +21,21 @@ cross cache and never writes it, and no cross cache is sized by
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .common import (apply_rope, dense_init, held_dtype, mrope_table,
                      norm_init, param, project, rmsnorm, rope_table,
                      softcap)
 
 __all__ = ["NEG_INF", "Attention", "MLA", "chunked_mha", "plain_mha",
-           "mha"]
+           "mha", "heads_local"]
 
 NEG_INF = -2.0 ** 30
 
@@ -123,7 +126,14 @@ def chunked_mha(q, k, v, *, scale, causal=True, window=None, cap=None,
 
 def mha(q, k, v, *, scale, causal, window, cap, q_offset=0, kv_len=None,
         q_chunk=512, kv_chunk=1024, schedule="full"):
-    """Dispatch: chunked for long sequences, plain for short/decode."""
+    """Dispatch: chunked for long sequences, plain for short/decode.  On
+    a mesh (DTensor q, k, v) it runs on each rank's heads and batch rows
+    (``heads_local``)."""
+    if isinstance(q, DTensor):
+        return heads_local(functools.partial(
+            mha, scale=scale, causal=causal, window=window, cap=cap,
+            q_offset=q_offset, kv_len=kv_len, q_chunk=q_chunk,
+            kv_chunk=kv_chunk, schedule=schedule), q, k, v)
     S, T = q.shape[1], k.shape[1]
     if S <= q_chunk or S % q_chunk or T % kv_chunk:
         return plain_mha(q, k, v, scale=scale, causal=causal, window=window,
@@ -131,6 +141,36 @@ def mha(q, k, v, *, scale, causal, window, cap, q_offset=0, kv_len=None,
     return chunked_mha(q, k, v, scale=scale, causal=causal, window=window,
                        cap=cap, q_offset=q_offset, q_chunk=q_chunk,
                        kv_chunk=kv_chunk, schedule=schedule)
+
+
+def heads_local(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention core: q (B, S, H, D), k/v (B, T, Kv,
+    Dv) -> (B, S, H, Dv)) on DTensors, each rank computing its own batch
+    rows and heads: the batch over the data axes when they divide it, the
+    heads over "model" when it divides both H and Kv (each rank's query
+    heads then use exactly its own kv heads), replicated otherwise.
+    Attention is independent per row and head, so this is the sharded
+    computation itself, with no collective inside; it spares DTensor's
+    propagation through the core's reshapes and einsums, which flatten
+    two sharded dims at once."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    B, H, Kv = q.shape[0], q.shape[2], k.shape[2]
+    dp = [i for i, a in enumerate(names) if a != "model"]
+    dp_size = math.prod(mesh.size(i) for i in dp)
+    want = []
+    for i, a in enumerate(names):
+        n = mesh.size(i)
+        if n == 1:
+            want.append(Replicate())
+        elif a == "model":
+            want.append(Shard(2) if H % n == 0 and Kv % n == 0
+                        else Replicate())
+        else:
+            want.append(Shard(0) if B % dp_size == 0 else Replicate())
+    o = fn(*(t.redistribute(mesh, want).to_local() for t in (q, k, v)))
+    return DTensor.from_local(o, mesh, want, run_check=False)
 
 
 def _check_fits(cache_pos: int, S: int, T: int) -> None:

@@ -13,7 +13,8 @@ from torch import nn
 from .attention import Attention
 from .common import cdtype, rmsnorm
 from .mlp import MLP
-from .transformer import LM, _norm, remat
+from ..runtime.sharding import mesh_scope
+from .transformer import LM, _gathered, _norm, call_gathered, remat
 
 __all__ = ["Encoder", "EncDec"]
 
@@ -54,11 +55,19 @@ class Encoder(nn.Module):
     def forward(self, frames):
         """frames (B, F, d_model), cast to the compute dtype -> the
         encoder's output (B, F, d_model); under ``cfg.remat == "block"``
-        each layer is recomputed in the backward pass of training."""
+        each layer is recomputed in the backward pass of training.  Under
+        a mesh each layer's weights are gathered at its use."""
         x = frames.to(cdtype(self.cfg))
         for layer in self.layers:
-            x = remat(self.cfg, layer, x)
+            x = remat(self.cfg, _encoder_layer, layer, x)
         return rmsnorm(self.final_norm, x, eps=self.cfg.norm_eps)
+
+
+def _encoder_layer(layer: EncoderLayer, x):
+    """One encoder layer; under a mesh its weights are gathered here,
+    inside what ``remat`` recomputes (repro's encoder ``body``)."""
+    with mesh_scope():
+        return call_gathered(layer, _gathered(layer, cdtype(layer.cfg)), x)
 
 
 class EncDec(LM):

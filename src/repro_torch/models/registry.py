@@ -24,6 +24,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from .encdec import EncDec
 from .transformer import LM, block_specs
@@ -46,7 +47,7 @@ _ALIASES = {
 __all__ = ["ARCHS", "get_config", "get_smoke_config", "build",
            "count_params", "jax_layout", "leaves_from_jax", "list_archs",
            "model_class", "params_from_jax", "params_to_jax",
-           "resolve_device"]
+           "resolve_device", "stack_to_jax"]
 
 
 def list_archs() -> list[str]:
@@ -200,13 +201,29 @@ def params_to_jax(cfg, params) -> dict:
     parameter names to tensors of their shapes: gradients, optimizer
     moments) as float32 numpy arrays, the blocks stacked back into
     ``group_{gi}`` lists of sub-layer dicts and the encoder layers into
-    ``encoder.layers``."""
+    ``encoder.layers``.  DTensors (a model placed on a mesh) are
+    gathered to their full values: every rank of the mesh calls it."""
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
+
+    def numpy(t):
+        t = t.detach()
+        if isinstance(t, DTensor):      # placed on a mesh: gather
+            t = t.full_tensor()
+        return t.to("cpu", torch.float32).numpy()
+
+    return stack_to_jax(cfg, {n: numpy(t) for n, t in params.items()},
+                        np.stack)
+
+
+def stack_to_jax(cfg, leaves: dict, stack: Callable) -> dict:
+    """The JAX tree of the port's per-layer ``leaves`` (a mapping from
+    parameter names to arrays): each stacked leaf is ``stack`` of its
+    blocks' arrays in repeat order (``np.stack`` for numpy, ``torch.stack``
+    for tensors, ``meta`` ones included)."""
     stacks: dict[tuple, dict] = {}
-    for name, (path, index) in jax_layout(cfg, params).items():
-        arr = params[name].detach().to("cpu", torch.float32).numpy()
-        stacks.setdefault(path, {})[index] = arr
+    for name, (path, index) in jax_layout(cfg, leaves).items():
+        stacks.setdefault(path, {})[index] = leaves[name]
     tree: dict = {}
     for path, parts in stacks.items():
         if None in parts:
@@ -214,7 +231,7 @@ def params_to_jax(cfg, params) -> dict:
         else:
             if sorted(parts) != list(range(len(parts))):
                 raise ValueError(f"{path}: stacked indices {sorted(parts)}")
-            leaf = np.stack([parts[i] for i in range(len(parts))])
+            leaf = stack([parts[i] for i in range(len(parts))])
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -239,10 +256,18 @@ def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy in float32 plus the z-loss 1e-4·mean(logz²):
     logz the logsumexp of each position's logits, the gold logit the
     label's (the JAX package extracts it with a masked sum, for its
-    vocab-sharded logits; a gather gives the same value)."""
+    vocab-sharded logits; a gather gives the same value).  On a mesh
+    (DTensor logits, the batch over the data axes) the port takes the
+    masked sum too, and each mean is the global mean over the tokens."""
     logits = logits.float()
     logz = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        # on a mesh: the masked sum over the (maybe vocab-sharded)
+        # logits, one partial sum per vocab shard
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(labels[..., None] == vocab, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = (logz - gold).mean()
     return loss + 1e-4 * torch.mean(logz ** 2)
 

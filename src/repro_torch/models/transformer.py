@@ -21,13 +21,17 @@ the stacked JAX parameters onto these blocks.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..runtime.sharding import (current_mesh, gather_for_compute,
+                                is_sharded, mesh_scope, shard_hint)
 from .attention import MLA, Attention
 from .common import (cdtype, dense_init, held_dtype, norm_init, param,
                      rmsnorm, softcap)
@@ -35,7 +39,8 @@ from .mlp import MLP, MoE
 from .ssm import Mamba2
 from .xlstm import MLSTM, SLSTM
 
-__all__ = ["GroupSpec", "arch_groups", "Block", "LM", "remat"]
+__all__ = ["GroupSpec", "arch_groups", "Block", "LM", "remat",
+           "call_gathered"]
 
 RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
 
@@ -105,6 +110,35 @@ def remat(cfg, fn, *args):
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
+
+
+def call_gathered(module: nn.Module, params: dict, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its parameters replaced by
+    ``params`` (``gather_for_compute``'s output, keyed by the module's
+    parameter names), or plainly when ``params`` is None."""
+    if params is None:
+        return module(*args, **kwargs)
+    return functional_call(module, params, args, kwargs)
+
+
+def _gathered(module: nn.Module, dt) -> "dict | None":
+    """``module``'s parameters gathered for compute in ``dt`` under an
+    active mesh (ZeRO-3 use-site gather), None without one."""
+    if current_mesh() is None:
+        return None
+    return gather_for_compute(dict(module.named_parameters()), cast=dt)
+
+
+def _embed(tokens, w):
+    """The rows of ``w`` at ``tokens``.  On a mesh whose axes shard the
+    vocabulary, a one-hot product instead: its contraction over the
+    vocab shards leaves one partial sum per shard (Megatron's
+    vocab-parallel embedding), the same values, and the gradient is the
+    product's; its (B, S, V) one-hot is the size of the logits."""
+    if is_sharded(w) and any(p.is_shard() for p in w.placements):
+        vocab = torch.arange(w.shape[0], device=tokens.device)
+        return (tokens[..., None] == vocab).to(w.dtype) @ w
+    return F.embedding(tokens, w)
 
 
 class Block(nn.Module):
@@ -248,17 +282,36 @@ class LM(nn.Module):
         and a training master's gradient is scatter-added in float32
         where the JAX package adds it in the compute dtype.  In training
         (no cache) under ``cfg.remat == "block"`` each unit of blocks is
-        recomputed in the backward pass."""
+        recomputed in the backward pass.
+
+        Under ``runtime.sharding.active_mesh`` (training on a mesh: the
+        model placed by ``place_model``, the inputs DTensors) each unit's
+        weights, the embedding and the untied head are gathered at their
+        use (``gather_for_compute``), and the embedded stream, the
+        sequence-parallel residual and the logits carry ``repro``'s
+        ``shard_hint``s, all under the caller's ``mesh_scope``."""
         cfg = self.cfg
         dt = cdtype(cfg)
+        # under a mesh the embedding and the untied head are gathered at
+        # their use; the embedding in float32, so that its rows and the
+        # tied head are cast after the gather, as without a mesh (its
+        # gradient adds up in float32: ROADMAP §C, "the embedding
+        # gathered in float32")
+        mesh = current_mesh() is not None
+        embed_w = (gather_for_compute({"embed": self.embed})["embed"]
+                   if mesh else self.embed)
         if embeds is None:
-            x = F.embedding(tokens, self.embed).to(dt)
+            x = _embed(tokens, embed_w).to(dt)
             if cfg.post_norms:  # gemma-style input scaling, factor in dt
                 x = x * torch.tensor(np.sqrt(cfg.d_model), dtype=dt,
                                      device=x.device)
         else:
             x = embeds.to(dt)
+        x = shard_hint(x, "dp", None, None)
         shared = getattr(self, "shared_attn", None)
+        if shared is not None and mesh:
+            shared = functools.partial(call_gathered, shared,
+                                       _gathered(shared, dt))
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cache is None and not make_cache:      # train: unit by unit
             for a, b in zip(self.units, self.units[1:]):
@@ -282,16 +335,34 @@ class LM(nn.Module):
             x = x[:, -1:]
         x = rmsnorm(self.final_norm, x, eps=cfg.norm_eps,
                     zero_centered=cfg.post_norms)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        logits = softcap(x @ head.to(dt), cfg.final_softcap)
+        if cfg.tie_embeddings:
+            head = embed_w.T
+        elif mesh:      # cast before the gather, as repro does
+            head = gather_for_compute({"lm_head": self.lm_head},
+                                      cast=dt)["lm_head"]
+        else:
+            head = self.lm_head
+        # vocab stays TP-sharded through the loss
+        logits = shard_hint(x @ head.to(dt), "dp", None, "model")
+        logits = softcap(logits, cfg.final_softcap)
         return logits, new_caches, aux_total
 
     def _unit(self, a, b, x, aux_total, shared, positions3, encoder_out):
         """Blocks ``a`` to ``b`` (one unit) without caches (training): x
-        and the running auxiliary loss after them."""
-        for layer in self.layers[a:b]:
-            x, _, aux = layer(x, shared=shared, positions3=positions3,
-                              encoder_out=encoder_out)
-            if aux is not None:
-                aux_total = aux_total + aux
-        return x, aux_total
+        and the running auxiliary loss after them.  Under a mesh the
+        unit's weights are gathered here, inside what ``remat``
+        recomputes, so one unit's gathered weights are live at a time
+        (repro's ``unit_body``)."""
+        with mesh_scope():
+            layers = self.layers[a:b]
+            gathered = [_gathered(layer, cdtype(self.cfg))
+                        for layer in layers]
+            if self.cfg.seq_parallel:
+                x = shard_hint(x, "dp", "model", None)
+            for layer, params in zip(layers, gathered):
+                x, _, aux = call_gathered(
+                    layer, params, x, shared=shared, positions3=positions3,
+                    encoder_out=encoder_out)
+                if aux is not None:
+                    aux_total = aux_total + aux
+            return x, aux_total

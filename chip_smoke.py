@@ -178,7 +178,12 @@ is present, or when the port is not next to it.  Phases:
                the mesh path (DTensor masters, use-site gathers, shard
                hints, sharded loss and optimizer) at full depth on the
                production backend, degenerate as a mesh (every placement
-               ``Replicate``).
+               ``Replicate``); then minicpm-2b at full width and depth
+               with bf16 weights held for serving, 4 requests x 16
+               prompt + 8 decoded tokens unsharded and again placed on
+               the 1×1 mesh through the same prefill/decode: tokens and
+               every step's logits bit for bit, decode ms a token and
+               the decode's peak.
  18. mesh    — FSDP + tensor parallelism: 4 gloo ranks on cuda:0 (NCCL
                refuses several ranks on one card) as a 2×2 ("data",
                "model") mesh, minicpm-2b at full width cut to 2 layers,
@@ -191,9 +196,26 @@ is present, or when the port is not next to it.  Phases:
                blocks); each rank's master bytes
                (held to the specs' share), peak and step seconds, the
                placements of one unit's ``wq``, ``w_up`` and the tied
-               embedding.  Gloo stages every gather and reduce-scatter
-               through host memory: the step time is a correctness
-               check's, not a speed.
+               embedding; then the same 2-layer model (float32 weights)
+               served on the mesh, 4 requests x 16 prompt + 4 decoded
+               tokens, with its weights placed by their FSDP specs and by
+               their compute specs (replicated over "data"), against the
+               unsharded serve on every rank (logits 1e-5, tokens
+               identical; each rank's cache bytes = ``cache_specs``'
+               share).  Gloo stages every gather and reduce-scatter
+               through host memory: the step and decode times are a
+               correctness check's, not a speed.
+ 19. dry run — in a CPU process started with phase 12 (beside phases
+               12–18): ``launch.dryrun`` for minicpm-2b ``decode_32k`` on
+               the (16, 16) production mesh (rank 0 of a fake group of
+               256), ``launch.dryrun_mining`` single / reduce_scatter,
+               and the dry run of phase 17's served shape; printed with
+               their roofline terms; the mining support round at its
+               per-rank shapes run on the card with B3 + B4 from seeded
+               stores (equal to the plain join; ms beside the analytic
+               t_memory); phase 17's decode ms a token beside
+               ``analyze``'s bound and its peak beside the dry run's
+               prediction.
 
 A run clock bounds the whole: no phase starts after ``RUN_DEADLINE``
 (1,100 s from the start; it fails "FAIL: phase N not started, ..."),
@@ -2124,6 +2146,10 @@ MESH_LAYERS = 2                            # full width, depth cut
 MESH_STEPS = 1
 MESH_LR = 1e-5                             # constant; see mesh_train
 MESH_TIMEOUT = 180
+SERVE_MESH = (4, 16, 8)          # phase 17: requests, prompt, decoded
+MESH_SERVE_STEPS = 4             # phase 18's decoded tokens (gloo: ~1.5 s each)
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT = 420             # phase 19's dry runs, beside phases 12-18
 
 
 def load_example(name: str):
@@ -3047,6 +3073,81 @@ def mesh_run_1x1(cfg) -> dict:
         dist.destroy_process_group()
 
 
+def greedy_serve(fns, model, prompts, steps: int, mesh=None) -> dict:
+    """Prefill ``prompts`` (B, S) and ``steps`` greedy decode steps of
+    ``model``, on ``mesh`` (the global batch on every rank) or unsharded:
+    the tokens (B, steps + 1), each step's last-position logits (float32,
+    on the CPU), the decode's ms a token (CUDA events), the peak bytes
+    of the decode (its resident weights and caches included) and the
+    caches."""
+    import torch
+    from repro_torch.runtime.sharding import active_mesh
+    full = (lambda t: t.full_tensor()) if mesh is not None else (lambda t: t)
+    B, S = prompts.shape
+    with active_mesh(mesh):
+        logits, cache = fns["prefill"](model, {"tokens": prompts},
+                                       max_len=S + steps)
+        outs = [full(logits)[:, -1].float()]
+        toks = [outs[-1].argmax(-1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for i in range(steps):
+            logits, cache = fns["decode"](model, cache,
+                                          {"tokens": toks[-1][:, None]},
+                                          S + i)
+            outs.append(full(logits)[:, -1].float())
+            toks.append(outs[-1].argmax(-1))
+        ev[1].record()
+        torch.cuda.synchronize()
+    return {"tokens": torch.stack(toks, 1).cpu().numpy(),
+            "logits": [o.cpu() for o in outs],
+            "decode_ms": ev[0].elapsed_time(ev[1]) / steps,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "cache": cache}
+
+
+def serve_prompts(cfg, device="cuda"):
+    import numpy as np
+    import torch
+    B, S, _ = SERVE_MESH
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab, (B, S)), device=device)
+
+
+def serve_mesh_1x1(cfg) -> dict:
+    """``cfg`` (minicpm-2b at full width and depth, bf16 weights held for
+    serving, seed 0) serving ``SERVE_MESH`` unsharded, then placed on a
+    1×1 ("data", "model") mesh over a one-rank NCCL group and served
+    again through the same ``prefill`` and ``decode``: both serves'
+    tokens and logits, decode times and decode peaks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry as reg
+    from repro_torch.runtime.sharding import place_model
+    fns = reg.build(cfg, device="cuda")
+    model = fns["init"](torch.Generator("cuda").manual_seed(0))
+    prompts = serve_prompts(cfg)
+    steps = SERVE_MESH[2]
+    ref = greedy_serve(fns, model, prompts, steps)
+    ref.pop("cache")
+    torch.cuda.empty_cache()
+    one_rank_nccl_group()
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        place_model(cfg, model, mesh)
+        got = greedy_serve(fns, model, prompts, steps, mesh=mesh)
+        leaf = got.pop("cache")[0]["k"]
+        got["cache"] = f"{type(leaf).__name__} {tuple(leaf.placements)}"
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    return {"ref": ref, "mesh": got, "exact": all(
+        torch.equal(a, b) for a, b in zip(ref["logits"], got["logits"]))}
+
+
 def training_child(out: str) -> None:
     """Phase 17's work, in a process of its own: minicpm-2b at full width
     and depth trained ``TRAIN_STEPS`` steps through the CLI
@@ -3111,11 +3212,12 @@ def training_child(out: str) -> None:
     res["resume"] = resume_on_card()
     torch.cuda.empty_cache()
     res["mesh1"] = mesh_run_1x1(full)
+    res["serve1"] = serve_mesh_1x1(reg.get_config(TRAIN_ARCH))
     with open(out, "wb") as f:
         pickle.dump(res, f)
 
 
-def phase_training(card: str) -> None:
+def phase_training(card: str) -> dict:
     """Phase 17: training (the loss, autograd through remat, AdamW, the
     loop with its checkpoints and the compressed data-parallel step are
     PyTorch ops, as they are ``jnp`` in the JAX package; no kernel of the
@@ -3228,7 +3330,23 @@ def phase_training(card: str) -> None:
         f"{[round(x, 6) for x in m1['losses']]} = the CLI run's first "
         f"{MESH1_STEPS} within {dl:.3g} relative (tolerance 1e-6); peak "
         f"{m1['peak_bytes'] / 1e9:.2f} GB")
+    s1 = res["serve1"]
+    ref, got = s1["ref"], s1["mesh"]
+    B, S, steps = SERVE_MESH
+    check(s1["exact"] and (ref["tokens"] == got["tokens"]).all(),
+          f"phase 17: the 1x1 mesh serve differs from the unsharded one: "
+          f"tokens {got['tokens'][0]} / {ref['tokens'][0]}")
+    say(f"phase 17 serving on the 1x1 mesh ({card}): {TRAIN_ARCH} at full "
+        f"width and depth, bf16 weights held for serving, {B} requests x "
+        f"{S} prompt + {steps} decoded tokens through prefill/decode "
+        f"under active_mesh (caches {got['cache']}): tokens and every "
+        f"step's logits bit for bit the unsharded serve's; decode "
+        f"{got['decode_ms']:.3f} ms/token on the mesh, "
+        f"{ref['decode_ms']:.3f} unsharded (CUDA events); decode peak "
+        f"{got['peak_bytes']} bytes on the mesh, {ref['peak_bytes']} "
+        f"unsharded; req 0 -> {got['tokens'][0].tolist()}")
     say(f"phase 17 training: {secs:.1f}s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3350,11 +3468,58 @@ def mesh_rank(rank: int, world: int, backend: str, store: str, runs,
                 res["master_err"] = max(res["master_err"], float(
                     (block(a) - p.to_local().detach()).abs().max()) / MESH_LR)
             del ref, model, named
+            res["serve"] = mesh_serves(cfg, mesh)
             with open(out, "wb") as f:
                 pickle.dump(res, f)
             dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def mesh_serves(cfg, mesh) -> dict:
+    """``cfg`` (float32 weights from seed 0) serving ``SERVE_MESH``'s
+    prompts and ``MESH_SERVE_STEPS`` decoded tokens unsharded on this
+    rank, then on ``mesh`` with its weights placed by
+    their FSDP specs and by their compute specs (tensor parallel only,
+    replicated over "data"): each serve's largest logit error against
+    the unsharded one (relative to max(1, max |logit|)), whether its
+    tokens are the same, its decode ms a token, and this rank's local
+    cache bytes beside the share ``cache_specs`` gives it."""
+    import math
+    import torch
+    from repro_torch.models import registry as reg
+    from repro_torch.runtime import sharding as sh
+    fns = reg.build(cfg, device="cuda")
+    prompts = serve_prompts(cfg)
+    steps = MESH_SERVE_STEPS
+    ref = greedy_serve(fns, fns["init"](torch.Generator(
+        "cuda").manual_seed(0)), prompts, steps)
+    axes = sh.mesh_axes(mesh)
+    out = {"ref_ms": ref["decode_ms"]}
+    for weights in ("fsdp", "data_replicated"):
+        model = fns["init"](torch.Generator("cuda").manual_seed(0))
+        sh.place_model(cfg, model, mesh,
+                       data_replicated=weights == "data_replicated")
+        got = greedy_serve(fns, model, prompts, steps, mesh=mesh)
+        caches = [c for c in got["cache"] if c is not None]
+        specs = sh.cache_specs(cfg, mesh, caches)
+        out[weights] = {
+            "err": max(float((a - b).abs().max()) / max(
+                1.0, float(a.abs().max()))
+                for a, b in zip(ref["logits"], got["logits"])),
+            "tokens": bool((ref["tokens"] == got["tokens"]).all()),
+            "decode_ms": got["decode_ms"],
+            "cache_bytes": sum(v.to_local().numel() * v.element_size()
+                               for c in caches for v in c.values()),
+            "spec_bytes": sum(
+                v.numel() * v.element_size() // math.prod(
+                    axes[a] for e in sp[k] if e is not None
+                    for a in ((e,) if isinstance(e, str) else e))
+                for c, sp in zip(caches, specs) for k, v in c.items()),
+            "cache_placements": {k: str(tuple(v.placements))
+                                 for k, v in caches[0].items()}}
+        del model, got
+    return out
 
 
 def phase_mesh(card: str) -> None:
@@ -3424,7 +3589,194 @@ def phase_mesh(card: str) -> None:
         f"{[round(x, 2) for x in r0['ref_step_s']]}; the mesh's step time "
         f"is gloo staging every collective through host memory: a "
         f"correctness check, not a speed")
+    B, S, _ = SERVE_MESH
+    steps = MESH_SERVE_STEPS
+    for weights in ("fsdp", "data_replicated"):
+        errs = [r["serve"][weights]["err"] for r in results]
+        check(max(errs) <= 1e-5
+              and all(r["serve"][weights]["tokens"] for r in results),
+              f"phase 18: serving on the mesh ({weights} weights): logit "
+              f"errors {errs}, tokens "
+              f"{[r['serve'][weights]['tokens'] for r in results]}")
+        for r, res in enumerate(results):
+            sv = res["serve"][weights]
+            check(sv["cache_bytes"] == sv["spec_bytes"],
+                  f"phase 18 rank {r}: local cache {sv['cache_bytes']} "
+                  f"bytes, cache_specs give {sv['spec_bytes']}")
+        sv = r0["serve"][weights]
+        say(f"phase 18 serving on the mesh ({card}; {weights} weights): "
+            f"{TRAIN_ARCH} at full width cut to {MESH_LAYERS} layers, "
+            f"float32, {B} requests x {S} prompt + {steps} decoded tokens "
+            f"on every rank: logits within {max(errs):.3g} of the "
+            f"unsharded serve's (tolerance 1e-5), tokens identical; each "
+            f"rank's caches {sv['cache_bytes']} bytes = cache_specs' share "
+            f"(placed {sv['cache_placements']}); decode "
+            f"{sv['decode_ms']:.1f} ms/token (unsharded "
+            f"{r0['serve']['ref_ms']:.2f}; gloo)")
     say(f"phase 18 mesh: {secs:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 19: dry run and roofline
+# ---------------------------------------------------------------------------
+
+SERVED = (4, 24)        # phase 17's served shape: batch, cache positions
+
+
+def dryrun_child(out: str) -> None:
+    """Phase 19's CPU work, in a process of its own beside phases 12-18:
+    ``launch.dryrun`` for minicpm-2b ``decode_32k`` on the production
+    (16×16) mesh at full width and depth (rank 0 of a fake group of 256),
+    ``launch.dryrun_mining`` single / reduce_scatter, and the dry run of
+    phase 17's served shape (``SERVED``, chips 1, tp 1, the weights held
+    as served)."""
+    use_src()
+    import pickle
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, dryrun_mining
+    from repro_torch.models import registry as reg
+    torch.set_num_threads(2)
+    res = {}
+    t0 = time.perf_counter()
+    res["decode_32k"] = dryrun.run_cell(TRAIN_ARCH, "decode_32k", "single",
+                                        str(DRYRUN_DIR))
+    res["decode_32k_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["mining"] = dryrun_mining.run("single", str(DRYRUN_DIR),
+                                      reduce="reduce_scatter")
+    res["mining_s"] = time.perf_counter() - t0
+    B, S = SERVED
+    res["served"] = dryrun.run_cell(
+        TRAIN_ARCH, "served", "single", str(DRYRUN_DIR),
+        cfg=reg.get_config(TRAIN_ARCH),
+        shape=ShapeConfig("served", S, B, "decode"), mesh_shape=(1, 1),
+        masters=False)
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def start_dryrun():
+    import multiprocessing
+    RANK_DIR.mkdir(parents=True, exist_ok=True)
+    out = RANK_DIR / "phase19.pkl"
+    out.unlink(missing_ok=True)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dryrun_child, args=(str(out),))
+    proc.start()
+    return proc, out, time.perf_counter()
+
+
+def support_round_on_card(cell: dict) -> dict:
+    """The mining dry run's support round at its per-rank shapes (PP =
+    parts per rank), run for real on the card from seeded inputs: the
+    map phase with the two-launch kernels B3 + B4 (``backend="pallas"``)
+    against the plain join (``"ref"``), exact, the kernels' ms a round
+    (CUDA events)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import device_local_supports
+    from repro_torch.launch.dryrun_mining import random_meta, random_stores
+    shapes = cell["shapes"]
+    PP = cell["parts_per_dev"]
+    P, G, M, K, T, F, C = (shapes[k] for k in "PGMKTFC")
+    meta = random_meta(np.random.default_rng(0), C, P, K, T)
+    stores = [torch.as_tensor(a, device="cuda") for a in random_stores(
+        np.random.default_rng(19), PP, P, G, M, K, T, F)]
+    before = launch_counts()
+    reset_launch_counts()
+    got = device_local_supports(meta, *stores, backend="pallas")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = device_local_supports(meta, *stores, backend="ref")
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    ms = time_ms(lambda: device_local_supports(meta, *stores,
+                                               backend="pallas"),
+                 runs=5, batch=3)
+    restore_launch_counts(before)
+    return {"err": err, "ms": ms, "launches": launches,
+            "frequent": int((want[0] >= 100).sum()),
+            "max_support": int(want[0].max()), "PP": PP}
+
+
+def phase_dryrun(card: str, child, res17: dict) -> None:
+    """Phase 19: the dry run and the roofline.  (a) the production decode
+    cell and (b) the mining support round, from the child started with
+    phase 12; (c) that round at its per-rank shapes on the card, B3 + B4
+    against the plain join, beside the analytic memory bound; (d) phase
+    17's decode on the 1×1 mesh beside ``analyze``'s bound for the
+    served shape; (e) the dry run's predicted peak for that serve beside
+    its measured peak."""
+    import pickle
+    proc, out, t0 = child
+    proc.join(CLOCK.clip("phase 19", DRYRUN_TIMEOUT))
+    if proc.is_alive():
+        proc.kill()
+        proc.join(30)
+        check(False, "phase 19: the dry runs still running")
+    check(proc.exitcode == 0, f"phase 19: dry runs exit code {proc.exitcode}")
+    with open(out, "rb") as f:
+        dry = pickle.load(f)
+    say(f"phase 19 dry runs: ready {time.perf_counter() - t0:.1f}s after "
+        f"they started (decode_32k {dry['decode_32k_s']:.1f}s, mining "
+        f"{dry['mining_s']:.1f}s, on the host's CPU beside phases 12-18)")
+    d = dry["decode_32k"]
+    check(d["status"] == "ok" and d["flops"] > 0 and d["argument_bytes"] > 0,
+          f"phase 19: decode_32k dry run {d.get('status')}")
+    say(f"[dryrun] {d['arch']} decode_32k single: "
+        f"args={d['argument_bytes'] / 2**30:.2f}GiB "
+        f"temp={d['temp_bytes'] / 2**30:.2f}GiB "
+        f"flops/dev={d['flops']:.3e} bottleneck={d['bottleneck']}")
+    say(f"phase 19 (a) {d['arch']} decode_32k on the (16, 16) mesh, rank 0 "
+        f"of 256 (H100 peaks at 700 W; this card {card}): t_compute "
+        f"{d['t_compute']:.6f}s, t_memory {d['t_memory']:.6f}s, "
+        f"t_collective {d['t_collective']:.6f}s, bound {d['bottleneck']}; "
+        f"model FLOPs/chip {d['model_flops_per_chip']:.4e}, useful "
+        f"{d['useful_ratio']:.4f}, roofline fraction "
+        f"{d['roofline_fraction']:.6f}; collectives {d['collectives']}")
+    m = dry["mining"]
+    sup = m["support"]
+    check(sup["collectives"] == {"reduce-scatter": 1, "all-gather": 1},
+          f"phase 19: the mining support round's collectives "
+          f"{sup['collectives']}")
+    say(f"phase 19 (b) mining single reduce_scatter, shapes {m['shapes']}: "
+        f"support t_compute {sup['t_compute']:.3g}s, t_memory "
+        f"{sup['t_memory']:.6f}s, t_collective {sup['t_collective']:.3g}s, "
+        f"bound {sup['bottleneck']}, wire {sup['wire_bytes']:.0f} B, "
+        f"collectives {sup['collectives']}; materialize t_memory "
+        f"{m['materialize']['t_memory']:.6f}s, collectives "
+        f"{m['materialize']['collectives']}")
+    rnd = support_round_on_card(m)
+    check(rnd["err"] == 0, f"phase 19: B3 + B4 against the plain join at "
+                           f"the dry run's shapes, max abs err {rnd['err']}")
+    check(rnd["launches"]["embedding_join"] == 1
+          and rnd["launches"]["support_count"] == 1,
+          f"phase 19: launches {rnd['launches']}")
+    say(f"phase 19 (c) ({card}): the support round's map phase at the dry "
+        f"run's per-rank shapes (PP {rnd['PP']}, P {m['shapes']['P']}, C "
+        f"{m['shapes']['C']}, G {m['shapes']['G']}, M {m['shapes']['M']}, "
+        f"K {m['shapes']['K']}, T {m['shapes']['T']}, F "
+        f"{m['shapes']['F']}; seeded inputs) with B3 + B4: equal to the "
+        f"plain join (max abs err 0), {rnd['ms']:.4f} ms a round (median "
+        f"of 5 batches of 3) beside the analytic t_memory "
+        f"{sup['t_memory'] * 1e3:.4f} ms; largest support "
+        f"{rnd['max_support']}")
+    s = dry["served"]
+    mesh = res17["serve1"]["mesh"]
+    bound_ms = max(s["t_compute"], s["t_memory"], s["t_collective"]) * 1e3
+    say(f"phase 19 (d) ({card}): phase 17's decode on the 1x1 mesh "
+        f"{mesh['decode_ms']:.3f} ms/token beside analyze's bound for "
+        f"(B {SERVED[0]}, S {SERVED[1]}, chips 1, tp 1) {bound_ms:.3f} ms "
+        f"(t_compute {s['t_compute'] * 1e3:.4f}, t_memory "
+        f"{s['t_memory'] * 1e3:.4f}, bound {s['bottleneck']}; "
+        f"{bound_ms / mesh['decode_ms']:.3f} of the roofline)")
+    predicted = s["argument_bytes"] + s["temp_bytes"]
+    say(f"phase 19 (e) ({card}): the dry run's predicted decode peak for "
+        f"that serve {predicted} bytes (arguments {s['argument_bytes']} + "
+        f"temp {s['temp_bytes']}) beside max_memory_allocated over its "
+        f"decode on the card {mesh['peak_bytes']} "
+        f"({mesh['peak_bytes'] / predicted:.4f} of the prediction)")
 
 
 def main() -> int:
@@ -3449,6 +3801,7 @@ def main() -> int:
     # beside the card's work (they take minutes of host time)
     pool = ProcessPoolExecutor(
         4, mp_context=multiprocessing.get_context("spawn"))
+    dry = None
     try:
         with phase("phase 1"):
             oracle_c2 = pool.submit(oracle, C2_DB, C2_MINSUP, C2_MAX_SIZE)
@@ -3540,6 +3893,7 @@ def main() -> int:
         with phase("phase 9"):
             phase_nccl()
         with phase("phase 12"):
+            dry = start_dryrun()        # phase 19's CPU work, beside these
             phase_examples()
         with phase("phase 13"):
             phase_serving(card)
@@ -3550,9 +3904,11 @@ def main() -> int:
         with phase("phase 16"):
             phase_serving_encdec_vlm(card)
         with phase("phase 17"):
-            phase_training(card)
+            res17 = phase_training(card)
         with phase("phase 18"):
             phase_mesh(card)
+        with phase("phase 19"):
+            phase_dryrun(card, dry, res17)
     except SmokeFailure as exc:
         # on both streams: a caller that keeps only the end of standard
         # error still sees which phase failed and when
@@ -3563,6 +3919,9 @@ def main() -> int:
         return 1
     finally:
         pool.shutdown(cancel_futures=True)
+        if dry is not None and dry[0].is_alive():
+            dry[0].kill()
+            dry[0].join(30)
     say(f"every phase passed in {CLOCK.used():.1f}s")
     print(json.dumps({"phase_seconds": CLOCK.seconds}), flush=True)
     print(card, flush=True)

@@ -151,13 +151,16 @@ def reduce_supports(local_sup: torch.Tensor, mesh: MiningMesh, minsup: int,
 
 
 def _support_program(mesh, meta, pol, pmask, src, dst, emask, *,
-                     minsup: int, backend: str, reduce: str):
+                     minsup: int, backend: str, reduce: str,
+                     gather_gsup: bool = True):
     """The support round of a non-fused backend: the map phase over the
-    rank's partitions, then the shuffle."""
+    rank's partitions, then the shuffle (``reduce_supports``; without
+    ``gather_gsup`` a ``reduce_scatter`` round leaves each rank its
+    support shard, as ``repro``'s program does)."""
     local_sup, _local_emb, emb_pp = device_local_supports(
         meta, pol, pmask, src, dst, emask, backend=backend)
     gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
-                                    gather_gsup=True)
+                                    gather_gsup=gather_gsup)
     return gsup, verdict, emb_pp
 
 
@@ -225,8 +228,20 @@ def map_materialize(mmesh: MiningMesh, keep_meta, pol, pmask, src, dst,
     int (one device→host read, as in the JAX package).  Every rank sees
     the same overflow, so every rank's escalation valve takes the same
     decision."""
+    ol, mask, total = _materialize_program(
+        mmesh, keep_meta, pol, pmask, src, dst, emask,
+        max_embeddings=max_embeddings, out_width=out_width)
+    return ol, mask, int(total)
+
+
+def _materialize_program(mmesh: MiningMesh, keep_meta, pol, pmask, src,
+                         dst, emask, *, max_embeddings: int,
+                         out_width: int | None = None):
+    """``map_materialize``'s device work: the rank's block of the next
+    OL store and mask, and the overflow summed over the workers as a
+    (1,) int64 tensor on the device."""
     lvl, over = materialize_ol(LevelOL(pol, pmask), src, dst, emask,
                                keep_meta, max_embeddings=max_embeddings,
                                out_width=out_width)
     total = mmesh.all_reduce(over.sum().to(torch.int64).reshape(1))
-    return lvl.ol, lvl.mask, int(total)
+    return lvl.ol, lvl.mask, total

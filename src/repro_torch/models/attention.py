@@ -17,7 +17,11 @@ F, Kv, dh), "v": ...}``, the keys and values of the F encoder frames.
 Decode writes the new entries into the caller's cache in place at
 ``cache_pos`` and attends over ``kv_len = cache_pos + S``; it reads a
 cross cache and never writes it, and no cross cache is sized by
-``max_len``.
+``max_len``.  Under an active mesh (serving on a mesh) every cache leaf
+is a DTensor placed by ``runtime.sharding.cache_specs``' rule: prefill
+makes each rank's block only, decode writes into its block in place
+(``write_seq``) and attends on its own batch rows and heads
+(``heads_local``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..runtime.sharding import cache_zeros, place_cache, write_seq
 from .common import (apply_rope, dense_init, held_dtype, mrope_table,
                      norm_init, param, project, rmsnorm, rope_table,
                      softcap)
@@ -239,7 +244,8 @@ class Attention(nn.Module):
                 v = project(cross_inputs, self.wv.to(dt))
                 if cfg.qkv_bias:
                     k, v = k + self.bk.to(dt), v + self.bv.to(dt)
-                new_cache = {"k": k, "v": v} if make_cache else cache
+                new_cache = (place_cache({"k": k, "v": v}) if make_cache
+                             else cache)
             else:  # decode: the cross cache built at prefill
                 k, v = cache["k"], cache["v"]
                 new_cache = cache
@@ -272,18 +278,21 @@ class Attention(nn.Module):
             new_cache = None
             if make_cache:
                 new_cache = init_layer_cache(cfg, B, max_len or S, k.dtype,
-                                             x.device)
-                new_cache["k"][:, :S] = k
-                new_cache["v"][:, :S] = v
+                                             like=k)
+                write_seq(new_cache["k"], 0, k)
+                write_seq(new_cache["v"], 0, v)
         else:
             # decode: write new k/v at cache_pos, attend over the prefix
             ck, cv = cache["k"], cache["v"]
             _check_fits(cache_pos, S, ck.shape[1])
-            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
-            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-            o = plain_mha(q, ck, cv, scale=scale, causal=True, window=window,
-                          cap=cfg.attn_softcap, q_offset=cache_pos,
-                          kv_len=cache_pos + S)
+            write_seq(ck, cache_pos, k)
+            write_seq(cv, cache_pos, v)
+            core = functools.partial(
+                plain_mha, scale=scale, causal=True, window=window,
+                cap=cfg.attn_softcap, q_offset=cache_pos,
+                kv_len=cache_pos + S)
+            o = (heads_local(core, q, ck, cv) if isinstance(q, DTensor)
+                 else core(q, ck, cv))
             new_cache = cache
 
         y = project(o.reshape(B, S, -1),
@@ -292,11 +301,14 @@ class Attention(nn.Module):
 
 
 def init_layer_cache(cfg, batch: int, max_len: int, dtype,
-                     device) -> dict:
-    """One attention layer's zero cache of ``max_len`` positions."""
+                     device=None, like=None) -> dict:
+    """One attention layer's zero cache of ``max_len`` positions, on
+    ``device``, or made as the activation ``like`` is (placed by
+    ``cache_specs``' rule under an active mesh)."""
     shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if like is None:
+        like = torch.empty(0, device=device)
+    return {n: cache_zeros(n, shape, dtype, like) for n in ("k", "v")}
 
 
 class MLA(nn.Module):
@@ -372,8 +384,8 @@ class MLA(nn.Module):
             cc, ckr = cache["ckv"], cache["kr"]
             T = cc.shape[1]
             _check_fits(cache_pos, S, T)
-            cc[:, cache_pos:cache_pos + S] = ckv.to(cc.dtype)
-            ckr[:, cache_pos:cache_pos + S] = kr.to(ckr.dtype)
+            write_seq(cc, cache_pos, ckv)
+            write_seq(ckr, cache_pos, kr)
             q_lat = torch.einsum("bshn,rhn->bshr", q_nope,
                                  self.w_uk.to(dt))        # (B,S,H,lora)
             ccf = cc.float()
@@ -402,11 +414,10 @@ class MLA(nn.Module):
             if make_cache:
                 T = max_len or S
                 new_cache = {
-                    "ckv": torch.zeros((B, T, cfg.kv_lora), dtype=dt,
-                                       device=x.device),
-                    "kr": torch.zeros((B, T, rdim), dtype=dt,
-                                      device=x.device)}
-                new_cache["ckv"][:, :S] = ckv
-                new_cache["kr"][:, :S] = kr
+                    "ckv": cache_zeros("ckv", (B, T, cfg.kv_lora), dt,
+                                       ckv),
+                    "kr": cache_zeros("kr", (B, T, rdim), dt, ckv)}
+                write_seq(new_cache["ckv"], 0, ckv)
+                write_seq(new_cache["kr"], 0, kr)
         wo = self.wo.to(dt).reshape(-1, cfg.d_model)
         return project(o.reshape(B, S, -1), wo), new_cache

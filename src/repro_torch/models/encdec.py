@@ -13,7 +13,7 @@ from torch import nn
 from .attention import Attention
 from .common import cdtype, rmsnorm
 from .mlp import MLP
-from ..runtime.sharding import mesh_scope
+from ..runtime.sharding import as_residual, mesh_scope
 from .transformer import LM, _gathered, _norm, call_gathered, remat
 
 __all__ = ["Encoder", "EncDec"]
@@ -36,8 +36,8 @@ class EncoderLayer(nn.Module):
         eps = self.cfg.norm_eps
         h = rmsnorm(self.ln1, x, eps=eps)
         y, _ = self.attn(h, is_cross=True, cross_inputs=h)
-        x = x + y
-        return x + self.mlp(rmsnorm(self.ln2, x, eps=eps))
+        x = x + as_residual(y, x)
+        return x + as_residual(self.mlp(rmsnorm(self.ln2, x, eps=eps)), x)
 
 
 class Encoder(nn.Module):

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.sharding import local_over
 from .common import dense_init, held_dtype, param, project
 
 __all__ = ["MLP", "MoE", "capacity"]
@@ -116,14 +117,23 @@ class MoE(nn.Module):
         pos = torch.cumsum(sel.to(torch.int32), dim=1) - 1
         return pos, sel & (pos < C)
 
-    def _expert_ffn(self, xe: torch.Tensor) -> torch.Tensor:
+    @staticmethod
+    def _expert_ffn(xe: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
         """xe (B, E, C, d) -> (B, E, C, d) through each expert's
         SwiGLU."""
         dt = xe.dtype
-        g = torch.einsum("becd,edf->becf", xe, self.w_gate.to(dt))
-        u = torch.einsum("becd,edf->becf", xe, self.w_up.to(dt))
+        g = torch.einsum("becd,edf->becf", xe, w_gate.to(dt))
+        u = torch.einsum("becd,edf->becf", xe, w_up.to(dt))
         return torch.einsum("becf,efd->becd", F.silu(g) * u,
-                            self.w_down.to(dt))
+                            w_down.to(dt))
+
+    def _experts(self, x, disp, gates, w_gate, w_up, w_down):
+        """The einsum path's dispatch, expert FFNs and combine: x (B, S,
+        d), disp (B, S, E, C), gates (B, S, E) -> y (B, S, d)."""
+        xe = torch.einsum("bsd,bsec->becd", x, disp)
+        ye = self._expert_ffn(xe, w_gate, w_up, w_down)
+        comb = disp * gates.to(x.dtype)[..., None]
+        return torch.einsum("becd,bsec->bsd", ye, comb)
 
     def forward(self, x: torch.Tensor):
         """Returns (y, aux): y (B, S, d) in x's dtype and the auxiliary
@@ -139,10 +149,13 @@ class MoE(nn.Module):
         if cfg.moe_impl == "einsum":
             disp = (keep[..., None] & (pos[..., None] == torch.arange(
                 C, device=x.device))).to(dt)                  # (B,S,E,C)
-            xe = torch.einsum("bsd,bsec->becd", x, disp)
-            ye = self._expert_ffn(xe)
-            comb = disp * gates.to(dt)[..., None]
-            y = torch.einsum("becd,bsec->bsd", ye, comb)
+            # on a mesh each rank runs its batch rows and its experts
+            # (expert parallelism), y its partial sum over them
+            y = local_over(
+                self._experts,
+                (x, disp, gates, self.w_gate, self.w_up, self.w_down),
+                ((0, None), (0, 2), (0, 2), (None, 0), (None, 0),
+                 (None, 0)), ((0, "partial"),))
         elif cfg.moe_impl == "scatter":
             bb = torch.arange(B, device=x.device)[:, None, None].expand(
                 B, S, E)
@@ -153,7 +166,9 @@ class MoE(nn.Module):
             buf.index_put_((bb, be, posc),
                            torch.where(keep[..., None], xb, 0),
                            accumulate=True)
-            ye = F.pad(self._expert_ffn(buf[:, :, :C]), (0, 0, 0, 1))
+            ye = F.pad(self._expert_ffn(buf[:, :, :C], self.w_gate,
+                                        self.w_up, self.w_down),
+                       (0, 0, 0, 1))
             y = (ye[bb, be, posc] * gates.to(dt)[..., None]
                  * keep[..., None]).sum(2)
         else:

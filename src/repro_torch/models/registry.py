@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from ..runtime.sharding import (batch_specs, current_mesh, keep_grad_layout,
+                                mesh_scope, place)
 from .encdec import EncDec
 from .transformer import LM, block_specs
 
@@ -259,7 +261,7 @@ def _ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     vocab-sharded logits; a gather gives the same value).  On a mesh
     (DTensor logits, the batch over the data axes) the port takes the
     masked sum too, and each mean is the global mean over the tokens."""
-    logits = logits.float()
+    logits = keep_grad_layout(logits.float())
     logz = torch.logsumexp(logits, -1)
     if isinstance(logits, DTensor):
         # on a mesh: the masked sum over the (maybe vocab-sharded)
@@ -287,7 +289,15 @@ def build(cfg, device=None, *, masters: bool = False
     cross-entropy with its z-loss plus the MoE auxiliary loss, and (as
     in the JAX package) ``"ce"`` is that same sum.  ``max_len`` sizes the
     self-attention caches; cross caches keep the F frames and recurrent
-    states have no length."""
+    states have no length.
+
+    Serving on a mesh: a model placed by ``runtime.sharding.place_model``
+    (its FSDP specs, or ``data_replicated`` ones) serves through the same
+    ``prefill`` and ``decode`` under ``runtime.sharding.active_mesh``,
+    every rank calling them alike with the global batch: the batch is
+    placed by ``batch_specs``, prefill returns each cache placed by
+    ``cache_specs``' rule and decode writes into those caches in place;
+    the logits are DTensors (``full_tensor()`` gives their values)."""
     device = resolve_device(device)
     cls = model_class(cfg)
     encdec = cls is EncDec
@@ -312,20 +322,34 @@ def build(cfg, device=None, *, masters: bool = False
         loss = _ce_loss(logits, batch["labels"].to(device)) + aux
         return loss, {"ce": loss, "aux": aux}
 
+    def placed(batch) -> dict:
+        """``batch`` on ``device``; under an active mesh (serving on a
+        mesh) the global batch, the same on every rank, placed by
+        ``batch_specs``: each rank keeps its block."""
+        batch = {k: v.to(device) for k, v in batch.items()}
+        mesh = current_mesh()
+        if mesh is None:
+            return batch
+        specs = batch_specs(cfg, mesh, batch)
+        return {k: place(v, specs[k], mesh) for k, v in batch.items()}
+
     @torch.no_grad()
     def prefill(model, batch, max_len: Optional[int] = None):
-        kw = inputs(batch)
-        if encdec:
-            kw["frames"] = batch["frames"].to(device)
-        logits, cache, _ = model(
-            **kw, make_cache=True, max_len=max_len,
-            last_logit_only=(cfg.prefill_logits == "last"))
+        with mesh_scope():
+            batch = placed(batch)
+            kw = inputs(batch)
+            if encdec:
+                kw["frames"] = batch["frames"]
+            logits, cache, _ = model(
+                **kw, make_cache=True, max_len=max_len,
+                last_logit_only=(cfg.prefill_logits == "last"))
         return logits, cache
 
     @torch.no_grad()
     def decode(model, cache, batch, pos: int):
-        logits, cache, _ = model(**inputs(batch), cache=cache,
-                                 cache_pos=pos)
+        with mesh_scope():
+            logits, cache, _ = model(**inputs(placed(batch)), cache=cache,
+                                     cache_pos=pos)
         return logits, cache
 
     return {"init": init, "loss_fn": loss_fn, "prefill": prefill,

@@ -24,11 +24,14 @@ and its next decode step fails.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime.sharding import keep_grad_layout, local_over
 from .common import dense_init, held_dtype, norm_init, param, project, rmsnorm
 
 __all__ = ["Mamba2", "init_mamba2_state", "pick_chunk", "softplus"]
@@ -62,7 +65,7 @@ def _split_in(proj, cfg):
     return torch.split(proj, [d_inner, d_inner + 2 * N, H], dim=-1)
 
 
-def _causal_conv(xBC, w, k):
+def _causal_conv(xBC, w, k: int):
     """Depthwise causal conv1d as k shifted adds.  xBC: (B, S, D), w:
     (k, D)."""
     out = xBC * w[-1]
@@ -130,6 +133,29 @@ def init_mamba2_state(cfg, batch: int, *, device,
                             dtype=dtype, device=device)}
 
 
+def _conv_history(xBC_raw, k: int):
+    """The last k raw conv inputs (b, k, D) in float32, zero-padded on
+    the left when the sequence is shorter than k (C4)."""
+    hist = F.pad(xBC_raw.float(), (0, 0, max(0, k - xBC_raw.shape[1]), 0))
+    return hist[:, hist.shape[1] - k:]
+
+
+def _window_conv(hist, w):
+    """Decode's conv over the rolling window: hist (b, k, D), w (k, D)
+    -> (b, 1, D)."""
+    return F.silu(torch.einsum("bkd,kd->bd", hist, w))[:, None, :]
+
+
+def _ssd_step(ssm, x, dt, A_log, Bv, Cv, D):
+    """One recurrent SSD step: the state ssm (b, H, N, P), x (b, H, P),
+    dt (b, H), A_log and D (H,), Bv, Cv (b, N) -> y (b, H, P) and the
+    stepped state."""
+    a = torch.exp(-torch.exp(A_log)[None] * dt)           # (b,H)
+    h = (ssm * a[:, :, None, None]
+         + (dt[:, :, None, None] * Bv[:, None, :, None]) * x[:, :, None, :])
+    return torch.einsum("bn,bhnp->bhp", Cv, h) + x * D[None, :, None], h
+
+
 class Mamba2(nn.Module):
     """``w_in`` (d, 2·d_inner + 2N + H) (z, x, B, C, dt), ``conv``
     (d_conv, d_inner + 2N) and ``w_out`` (d_inner, d) in the compute
@@ -172,26 +198,35 @@ class Mamba2(nn.Module):
         cfg = self.cfg
         d_inner, H, P, N = _dims(cfg)
         dt_ = u.dtype
-        proj = project(u, self.w_in.to(dt_))
+        # its gradient back in the projection's layout (on a mesh: the
+        # split gathers it, and w_in's gradient stays on its shard)
+        proj = keep_grad_layout(project(u, self.w_in.to(dt_)))
         z, xBC_raw, dt = _split_in(proj, cfg)
-        xBC = _causal_conv(xBC_raw, self.conv.to(dt_), cfg.d_conv)
+        # on a mesh each rank convolves its batch rows
+        xBC = local_over(
+            functools.partial(_causal_conv, k=cfg.d_conv),
+            (xBC_raw, self.conv.to(dt_)), ((0, None), (None, None)),
+            ((0, None),))
         x, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
         b, s, _ = x.shape
         x = x.reshape(b, s, H, P)
         dt = softplus(dt.float() + self.dt_bias)          # (b,s,H)
-        y, final = _ssd_chunked(x.float(), dt, self.A_log, B.float(),
-                                C.float(), pick_chunk(s, cfg.ssm_chunk))
+        # on a mesh each rank runs its own batch rows and heads
+        y, final = local_over(
+            functools.partial(_ssd_chunked,
+                              chunk=pick_chunk(s, cfg.ssm_chunk)),
+            (x.float(), dt, self.A_log, B.float(), C.float()),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+            ((0, 2), (0, 1)))
         y = y + x.float() * self.D[None, None, :, None]
         y = y.reshape(b, s, d_inner).to(dt_)
         y = rmsnorm(self.norm, y * F.silu(z), eps=cfg.norm_eps)
         out = project(y, self.w_out.to(dt_))
         if not return_state:
             return out
-        # the last k raw inputs, zero-padded on the left when s < k (C4)
-        k = cfg.d_conv - 1
-        hist = F.pad(xBC_raw.float(), (0, 0, max(0, k - s), 0))
-        return out, {"ssm": final.float(),
-                     "conv": hist[:, hist.shape[1] - k:]}
+        conv = local_over(functools.partial(_conv_history, k=cfg.d_conv - 1),
+                          (xBC_raw,), ((0, None),), ((0, None),))
+        return out, {"ssm": final.float(), "conv": conv}
 
     def _decode(self, u, state):
         cfg = self.cfg
@@ -202,19 +237,18 @@ class Mamba2(nn.Module):
         # conv over the rolling window, in the history's float32
         hist = torch.cat([state["conv"], xBC.to(state["conv"].dtype)], 1)
         w = self.conv.to(dt_).to(hist.dtype)
-        xBC = F.silu(torch.einsum("bkd,kd->bd", hist, w))[:, None, :]
+        xBC = local_over(_window_conv, (hist, w),
+                         ((0, None), (None, None)), ((0, None),))
         x, B, C = torch.split(xBC, [d_inner, N, N], dim=-1)
         b = x.shape[0]
         x = x.reshape(b, H, P).float()
         dt = softplus(dt[:, 0].float() + self.dt_bias)
-        a = torch.exp(-torch.exp(self.A_log)[None] * dt)  # (b,H)
-        Bv = B[:, 0].float()                              # (b,N)
-        Cv = C[:, 0].float()
-        h = (state["ssm"] * a[:, :, None, None]
-             + (dt[:, :, None, None] * Bv[:, None, :, None])
-             * x[:, :, None, :])
-        y = (torch.einsum("bn,bhnp->bhp", Cv, h)
-             + x * self.D[None, :, None])
+        # on a mesh each rank steps its batch rows and heads
+        y, h = local_over(
+            _ssd_step, (state["ssm"], x, dt, self.A_log, B[:, 0].float(),
+                        C[:, 0].float(), self.D),
+            ((0, 1), (0, 1), (0, 1), (None, 0), (0, None), (0, None),
+             (None, 0)), ((0, 1), (0, 1)))
         y = y.reshape(b, 1, d_inner).to(dt_)
         y = rmsnorm(self.norm, y * F.silu(z), eps=cfg.norm_eps)
         out = project(y, self.w_out.to(dt_))

@@ -30,8 +30,9 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..runtime.sharding import (current_mesh, gather_for_compute,
-                                is_sharded, mesh_scope, shard_hint)
+from ..runtime.sharding import (as_residual, current_mesh,
+                                gather_for_compute, is_sharded, mesh_scope,
+                                place_cache, shard_hint)
 from .attention import MLA, Attention
 from .common import (cdtype, dense_init, held_dtype, norm_init, param,
                      rmsnorm, softcap)
@@ -136,7 +137,13 @@ def _embed(tokens, w):
     vocab-parallel embedding), the same values, and the gradient is the
     product's; its (B, S, V) one-hot is the size of the logits."""
     if is_sharded(w) and any(p.is_shard() for p in w.placements):
-        vocab = torch.arange(w.shape[0], device=tokens.device)
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        # the one-hot's vocab axis sharded as the table's rows are: each
+        # rank's product, forward and backward, is its vocab shard's
+        vocab = distribute_tensor(
+            torch.arange(w.shape[0], device=tokens.device), w.device_mesh,
+            [p if p.is_shard(0) else Replicate() for p in w.placements],
+            src_data_rank=None)
         return (tokens[..., None] == vocab).to(w.dtype) @ w
     return F.embedding(tokens, w)
 
@@ -211,7 +218,7 @@ class Block(nn.Module):
         if cfg.post_norms:
             y = rmsnorm(self.post_ln1, y, eps=cfg.norm_eps,
                         zero_centered=True)
-        x = x + y
+        x = x + as_residual(y, x)
         aux = None
         if self.ffn != "none":
             h = rmsnorm(self.ln2, x, eps=cfg.norm_eps,
@@ -223,7 +230,7 @@ class Block(nn.Module):
             if cfg.post_norms:
                 y = rmsnorm(self.post_ln2, y, eps=cfg.norm_eps,
                             zero_centered=True)
-            x = x + y
+            x = x + as_residual(y, x)
         return x, new_cache, aux
 
 
@@ -240,7 +247,7 @@ class LM(nn.Module):
 
     def __init__(self, cfg, *, device, generator=None, masters=False):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.masters = cfg, masters
         dt = held_dtype(cfg, masters)
         self.embed = param(dense_init(
             (cfg.vocab, cfg.d_model), generator=generator, device=device,
@@ -284,12 +291,14 @@ class LM(nn.Module):
         (no cache) under ``cfg.remat == "block"`` each unit of blocks is
         recomputed in the backward pass.
 
-        Under ``runtime.sharding.active_mesh`` (training on a mesh: the
-        model placed by ``place_model``, the inputs DTensors) each unit's
-        weights, the embedding and the untied head are gathered at their
-        use (``gather_for_compute``), and the embedded stream, the
+        Under ``runtime.sharding.active_mesh`` (training or serving on a
+        mesh: the model placed by ``place_model``, the inputs DTensors)
+        each unit's (each block's, with caches) weights, the embedding and
+        the untied head are gathered at their use
+        (``gather_for_compute``), the embedded stream, the
         sequence-parallel residual and the logits carry ``repro``'s
-        ``shard_hint``s, all under the caller's ``mesh_scope``."""
+        ``shard_hint``s, and every cache is placed by ``cache_specs``'
+        rule (``place_cache``), all under the caller's ``mesh_scope``."""
         cfg = self.cfg
         dt = cdtype(cfg)
         # under a mesh the embedding and the untied head are gathered at
@@ -308,10 +317,13 @@ class LM(nn.Module):
         else:
             x = embeds.to(dt)
         x = shard_hint(x, "dp", None, None)
+        # the use-site cast of the gathered weights: the masters' to the
+        # compute dtype; weights held for serving are used as held
+        cast = dt if self.masters else None
         shared = getattr(self, "shared_attn", None)
         if shared is not None and mesh:
             shared = functools.partial(call_gathered, shared,
-                                       _gathered(shared, dt))
+                                       _gathered(shared, cast))
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cache is None and not make_cache:      # train: unit by unit
             for a, b in zip(self.units, self.units[1:]):
@@ -321,12 +333,13 @@ class LM(nn.Module):
         else:
             new_caches = []
             for i, layer in enumerate(self.layers):
-                x, nc, aux = layer(
-                    x, cache=cache[i] if cache is not None else None,
+                x, nc, aux = call_gathered(
+                    layer, _gathered(layer, cast), x,
+                    cache=cache[i] if cache is not None else None,
                     cache_pos=cache_pos, make_cache=True, max_len=max_len,
                     shared=shared, positions3=positions3,
                     encoder_out=encoder_out)
-                new_caches.append(nc)
+                new_caches.append(place_cache(nc))
                 if aux is not None:
                     aux_total = aux_total + aux
         if last_logit_only:

@@ -21,10 +21,13 @@ matmul weights are held in the compute dtype.  States are float32.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
 
+from ..runtime.sharding import local_over
 from .common import dense_init, held_dtype, param, project
 from .ssm import pick_chunk, softplus
 
@@ -112,57 +115,19 @@ class MLSTM(nn.Module):
     def forward(self, x, *, state=None, return_state: bool = False):
         """Chunked parallel form (``state`` None): x (B, S, d) -> y, or
         (y, {"S", "n"}) when ``return_state``.  Recurrent step
-        (``state`` given): x (B, 1, d) -> (y, the stepped state)."""
+        (``state`` given): x (B, 1, d) -> (y, the stepped state).  On a
+        mesh the recurrence runs on each rank's batch rows and heads
+        (``local_over``)."""
         if state is not None:
             return self._decode(x, state)
-        H, D = _mdims(self.cfg)
-        B, S, _ = x.shape
         dt_ = x.dtype
         q, k, v = self._qkv(x)
         i, log_f = self._gates(x)                         # (B,S,H)
-
-        chunk = pick_chunk(S, self.cfg.ssm_chunk or 256)
-        nc = S // chunk
-        qc = q.reshape(B, nc, chunk, H, D)
-        kc = k.reshape(B, nc, chunk, H, D).float()
-        vc = v.reshape(B, nc, chunk, H, D).float()
-        ic = i.reshape(B, nc, chunk, H)
-        fcum = torch.cumsum(log_f.reshape(B, nc, chunk, H), dim=2)
-        last = fcum[:, :, -1:, :]
-
-        # intra-chunk: w_tu = exp(fcum_t - fcum_u + i_u), u <= t
-        L = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                  device=x.device))
-        seg = (fcum[:, :, :, None, :] - fcum[:, :, None, :, :]
-               + ic[:, :, None, :, :])
-        dmat = torch.exp(torch.where(L[None, None, :, :, None], seg,
-                                     -torch.inf))         # (B,nc,t,u,H)
-        w = torch.einsum("bcthk,bcuhk->bctuh", qc, kc) * dmat
-        y_intra = torch.einsum("bctuh,bcuhk->bcthk", w, vc)
-        den_intra = w.sum(3)                              # (B,nc,t,H)
-
-        # chunk states: S_c = sum_u exp(last - fcum_u + i_u) k_u v_u^T
-        kd = kc * torch.exp(last - fcum + ic)[..., None]
-        states = torch.einsum("bcuhk,bcuhn->bchkn", kd, vc)
-        nstates = kd.sum(2)                               # (B,nc,H,D)
-        cdecay = torch.exp(last[:, :, 0, :])              # (B,nc,H)
-
-        Sm = torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device)
-        Sn = torch.zeros((B, H, D), dtype=torch.float32, device=x.device)
-        prevS, prevN = [], []
-        for c in range(nc):                               # hand on PREV
-            prevS.append(Sm)
-            prevN.append(Sn)
-            Sm = Sm * cdecay[:, c, :, None, None] + states[:, c]
-            Sn = Sn * cdecay[:, c, :, None] + nstates[:, c]
-
-        qd = qc * torch.exp(fcum)[..., None]              # to chunk start
-        y_off = torch.einsum("bcthk,bchkn->bcthn", qd,
-                             torch.stack(prevS, 1))
-        den_off = torch.einsum("bcthk,bchk->bcth", qd, torch.stack(prevN, 1))
-
-        den = torch.clamp_min(torch.abs(den_intra + den_off), 1.0)
-        y = ((y_intra + y_off) / den[..., None]).reshape(B, S, H, D)
+        chunk = pick_chunk(x.shape[1], self.cfg.ssm_chunk or 256)
+        y, Sm, Sn = local_over(
+            functools.partial(_mlstm_chunked, chunk=chunk),
+            (q, k, v, i, log_f), ((0, 2),) * 5,
+            ((0, 2), (0, 1), (0, 1)))
         out = self._finish(y.to(dt_), x)
         if return_state:
             return out, {"S": Sm, "n": Sn}
@@ -171,19 +136,76 @@ class MLSTM(nn.Module):
     def _decode(self, x, state):
         dt_ = x.dtype
         q, k, v = self._qkv(x)
-        q, k, v = q[:, 0], k[:, 0].float(), v[:, 0].float()   # (B,H,D)
         i, log_f = self._gates(x)                         # (B,1,H)
-        di = torch.exp(i[:, 0])
-        df = torch.exp(log_f[:, 0])
-        S_new = (state["S"] * df[:, :, None, None]
-                 + k[..., :, None] * v[..., None, :] * di[:, :, None, None])
-        n_new = state["n"] * df[:, :, None] + k * di[:, :, None]
-        num = torch.einsum("bhk,bhkn->bhn", q, S_new)
-        den = torch.clamp_min(
-            torch.abs(torch.einsum("bhk,bhk->bh", q, n_new)), 1.0)
-        y = (num / den[:, :, None]).to(dt_)[:, None]      # (B,1,H,D)
-        return self._finish(y, x), {"S": S_new.to(state["S"].dtype),
-                                    "n": n_new.to(state["n"].dtype)}
+        y, S_new, n_new = local_over(
+            _mlstm_step, (q, k, v, i, log_f, state["S"], state["n"]),
+            ((0, 2),) * 5 + ((0, 1), (0, 1)),
+            ((0, 2), (0, 1), (0, 1)))
+        return self._finish(y.to(dt_), x), {"S": S_new.to(state["S"].dtype),
+                                            "n": n_new.to(state["n"].dtype)}
+
+
+def _mlstm_chunked(q, k, v, i, log_f, chunk: int):
+    """mLSTM's chunked parallel form: q (float32), k, v (B, S, H, D), the
+    gates i, log f (B, S, H) -> y (B, S, H, D) float32 and the final
+    state S (B, H, D, D), n (B, H, D)."""
+    B, S, H, D = q.shape
+    nc = S // chunk
+    qc = q.reshape(B, nc, chunk, H, D)
+    kc = k.reshape(B, nc, chunk, H, D).float()
+    vc = v.reshape(B, nc, chunk, H, D).float()
+    ic = i.reshape(B, nc, chunk, H)
+    fcum = torch.cumsum(log_f.reshape(B, nc, chunk, H), dim=2)
+    last = fcum[:, :, -1:, :]
+
+    # intra-chunk: w_tu = exp(fcum_t - fcum_u + i_u), u <= t
+    L = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                              device=q.device))
+    seg = (fcum[:, :, :, None, :] - fcum[:, :, None, :, :]
+           + ic[:, :, None, :, :])
+    dmat = torch.exp(torch.where(L[None, None, :, :, None], seg,
+                                 -torch.inf))             # (B,nc,t,u,H)
+    w = torch.einsum("bcthk,bcuhk->bctuh", qc, kc) * dmat
+    y_intra = torch.einsum("bctuh,bcuhk->bcthk", w, vc)
+    den_intra = w.sum(3)                                  # (B,nc,t,H)
+
+    # chunk states: S_c = sum_u exp(last - fcum_u + i_u) k_u v_u^T
+    kd = kc * torch.exp(last - fcum + ic)[..., None]
+    states = torch.einsum("bcuhk,bcuhn->bchkn", kd, vc)
+    nstates = kd.sum(2)                                   # (B,nc,H,D)
+    cdecay = torch.exp(last[:, :, 0, :])                  # (B,nc,H)
+
+    Sm = torch.zeros((B, H, D, D), dtype=torch.float32, device=q.device)
+    Sn = torch.zeros((B, H, D), dtype=torch.float32, device=q.device)
+    prevS, prevN = [], []
+    for c in range(nc):                                   # hand on PREV
+        prevS.append(Sm)
+        prevN.append(Sn)
+        Sm = Sm * cdecay[:, c, :, None, None] + states[:, c]
+        Sn = Sn * cdecay[:, c, :, None] + nstates[:, c]
+
+    qd = qc * torch.exp(fcum)[..., None]                  # to chunk start
+    y_off = torch.einsum("bcthk,bchkn->bcthn", qd, torch.stack(prevS, 1))
+    den_off = torch.einsum("bcthk,bchk->bcth", qd, torch.stack(prevN, 1))
+
+    den = torch.clamp_min(torch.abs(den_intra + den_off), 1.0)
+    return ((y_intra + y_off) / den[..., None]).reshape(B, S, H, D), Sm, Sn
+
+
+def _mlstm_step(q, k, v, i, log_f, S, n):
+    """One recurrent mLSTM step: q, k, v (B, 1, H, D), gates (B, 1, H),
+    the state S (B, H, D, D), n (B, H, D) -> y (B, 1, H, D) float32 and
+    the stepped state, float32."""
+    q, k, v = q[:, 0], k[:, 0].float(), v[:, 0].float()  # (B,H,D)
+    di = torch.exp(i[:, 0])
+    df = torch.exp(log_f[:, 0])
+    S_new = (S * df[:, :, None, None]
+             + k[..., :, None] * v[..., None, :] * di[:, :, None, None])
+    n_new = n * df[:, :, None] + k * di[:, :, None]
+    num = torch.einsum("bhk,bhkn->bhn", q, S_new)
+    den = torch.clamp_min(
+        torch.abs(torch.einsum("bhk,bhk->bh", q, n_new)), 1.0)
+    return (num / den[:, :, None])[:, None], S_new, n_new
 
 
 # ---------------------------------------------------------------------------
@@ -228,39 +250,56 @@ class SLSTM(nn.Module):
         self.norm = param(torch.ones((H, D), dtype=torch.float32,
                                      device=device), masters)
 
-    def _step(self, xt, st):
-        """One step with the full stabilizer.  xt: (B, 4, H, D), the
-        input already projected."""
-        rec = torch.einsum("bhd,ghde->bghe", st["h"].float(), self.r_zifo)
-        g = xt.float() + rec + self.b_zifo
-        z = torch.tanh(g[:, 0])
-        i = g[:, 1]                       # exponential input gate (log)
-        log_f = -softplus(-g[:, 2])
-        o = torch.sigmoid(g[:, 3])
-        m_new = torch.maximum(log_f + st["m"], i)
-        di = torch.exp(i - m_new)
-        df = torch.exp(log_f + st["m"] - m_new)
-        c_new = df * st["c"] + di * z
-        n_new = df * st["n"] + di
-        h_new = o * c_new / torch.clamp_min(n_new, 1.0)
-        return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
-
     def forward(self, x, *, state=None, return_state: bool = False):
         """Sequential over S from the starting state (``state`` None): x
         (B, S, d) -> y, or (y, state) when ``return_state``.  One step
-        (``state`` given): x (B, 1, d) -> (y, the stepped state)."""
+        (``state`` given): x (B, 1, d) -> (y, the stepped state).  On a
+        mesh the recurrence runs on each rank's batch rows and heads
+        (``local_over``)."""
         dt_ = x.dtype
-        xg = project(x, self.w_zifo.to(dt_))              # (B,S,4,H,D)
+        # (B,S,4,H,D); on a mesh each rank projects onto its own heads
+        xg = local_over(project, (x, self.w_zifo.to(dt_)),
+                        ((0, None), (None, 2)), ((0, 3),))
+        st = state if state is not None else init_slstm_state(
+            self.cfg, x.shape[0], device=x.device)
+        names = ("c", "n", "h", "m")
+        hs, *last = local_over(
+            _slstm_scan, (xg, self.r_zifo, self.b_zifo,
+                          *(st[k] for k in names)),
+            ((0, 3), (None, 1), (None, 1)) + ((0, 1),) * 4,
+            ((0, 2),) + ((0, 1),) * 4)
+        out = _out(_headnorm(self.norm, hs.to(dt_)), self.wo.to(dt_))
         if state is not None:
-            st = self._step(xg[:, 0], state)
-            y = st["h"].to(dt_)[:, None]
-            return (_out(_headnorm(self.norm, y), self.wo.to(dt_)),
-                    {k: v.to(state[k].dtype) for k, v in st.items()})
-        st = init_slstm_state(self.cfg, x.shape[0], device=x.device)
-        hs = []
-        for t in range(x.shape[1]):
-            st = self._step(xg[:, t], st)
-            hs.append(st["h"])
-        y = torch.stack(hs, 1).to(dt_)                    # (B,S,H,D)
-        out = _out(_headnorm(self.norm, y), self.wo.to(dt_))
-        return (out, st) if return_state else out
+            return out, {k: v.to(state[k].dtype)
+                         for k, v in zip(names, last)}
+        return (out, dict(zip(names, last))) if return_state else out
+
+
+def _slstm_step(xt, st, r_zifo, b_zifo):
+    """One sLSTM step with the full stabilizer.  xt: (B, 4, H, D), the
+    input already projected; st: c, n, h, m (B, H, D)."""
+    rec = torch.einsum("bhd,ghde->bghe", st["h"].float(), r_zifo)
+    g = xt.float() + rec + b_zifo
+    z = torch.tanh(g[:, 0])
+    i = g[:, 1]                           # exponential input gate (log)
+    log_f = -softplus(-g[:, 2])
+    o = torch.sigmoid(g[:, 3])
+    m_new = torch.maximum(log_f + st["m"], i)
+    di = torch.exp(i - m_new)
+    df = torch.exp(log_f + st["m"] - m_new)
+    c_new = df * st["c"] + di * z
+    n_new = df * st["n"] + di
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return {"c": c_new, "n": n_new, "h": h_new, "m": m_new}
+
+
+def _slstm_scan(xg, r_zifo, b_zifo, c, n, h, m):
+    """sLSTM over the S steps of xg (B, S, 4, H, D) from the state c, n,
+    h, m (B, H, D): every step's h (B, S, H, D) float32 and the last
+    state."""
+    st = {"c": c, "n": n, "h": h, "m": m}
+    hs = []
+    for t in range(xg.shape[1]):
+        st = _slstm_step(xg[:, t], st, r_zifo, b_zifo)
+        hs.append(st["h"])
+    return (torch.stack(hs, 1), st["c"], st["n"], st["h"], st["m"])

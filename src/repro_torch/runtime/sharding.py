@@ -44,10 +44,11 @@ from typing import Any, Mapping, Optional
 import torch
 
 __all__ = ["partition_block", "fsdp_axes", "logical_rules", "param_specs",
-           "compute_specs", "batch_specs", "cache_specs", "placements",
-           "place", "place_model", "active_mesh", "current_mesh", "mesh_scope",
-           "shard_hint", "gather_for_compute", "mesh_axes", "is_sharded",
-           "local"]
+           "compute_specs", "batch_specs", "cache_spec", "cache_specs",
+           "placements", "place", "place_model", "active_mesh",
+           "current_mesh", "mesh_scope", "shard_hint", "gather_for_compute",
+           "mesh_axes", "is_sharded", "local", "cache_zeros", "write_seq",
+           "place_cache", "as_residual", "keep_grad_layout", "local_over"]
 
 
 def partition_block(n_partitions: int, rank: int, n_workers: int) -> slice:
@@ -319,6 +320,12 @@ def _cache_spec(name: str, shp: tuple, axes: dict[str, int], dp) -> tuple:
     return tuple(parts)
 
 
+def cache_spec(name: str, shape, mesh) -> tuple:
+    """The spec of one per-layer cache leaf ``name`` of ``shape`` (B,
+    ...) on ``mesh``: ``cache_specs``' rule for a single leaf."""
+    return _cache_spec(name, tuple(shape), mesh_axes(mesh), fsdp_axes(mesh))
+
+
 def cache_specs(cfg, mesh, caches: list) -> list:
     """Decode-cache sharding of the port's per-block caches (a list, one
     dict or None per block), ``repro``'s rule less the stacked dim.
@@ -330,11 +337,9 @@ def cache_specs(cfg, mesh, caches: list) -> list:
         lands on the sequence dim.
     Recurrent states (ssm/mlstm/slstm): batch over DP, heads over model.
     """
-    axes = mesh_axes(mesh)
-    dp = fsdp_axes(mesh)
     return [None if c is None else
-            {k: _cache_spec(k, tuple(v.shape), axes, dp)
-             for k, v in c.items()} for c in caches]
+            {k: cache_spec(k, v.shape, mesh) for k, v in c.items()}
+            for c in caches]
 
 
 # ---------------------------------------------------------------------------
@@ -375,11 +380,18 @@ def place(t: torch.Tensor, spec: tuple, mesh):
                              src_data_rank=None)
 
 
-def place_model(cfg, model: torch.nn.Module, mesh) -> torch.nn.Module:
+def place_model(cfg, model: torch.nn.Module, mesh, *,
+                data_replicated: bool = False) -> torch.nn.Module:
     """Replaces every parameter of ``model`` (its full values, drawn or
     loaded the same on every rank) by a DTensor parameter placed by
-    ``param_specs``, in place; returns the model."""
-    specs = param_specs(cfg, model, mesh)
+    ``param_specs`` (FSDP + tensor parallel), in place; returns the
+    model.  ``data_replicated`` places them by ``compute_specs`` instead:
+    tensor parallel only, each rank of a "model" group holding its
+    whole share (the serving weights of ``repro``'s
+    ``DRYRUN_DECODE_WEIGHTS=replicated``: no gather over the data axes
+    at each use, for params·bytes/tp of memory on every rank)."""
+    specs = (compute_specs if data_replicated else param_specs)(
+        cfg, model, mesh)
     for name, p in list(model.named_parameters()):
         mod_name, _, attr = name.rpartition(".")
         mod = model.get_submodule(mod_name) if mod_name else model
@@ -429,7 +441,73 @@ def shard_hint(x, *dims: Any):
         size = _size(axes, names)
         parts.append(names if dim_size % size == 0 and dim_size >= size
                      else None)
-    return x.redistribute(mesh, placements(tuple(parts), mesh))
+    return _redistribute(x, mesh, placements(tuple(parts), mesh))
+
+
+class _Reduce(torch.autograd.Function):
+    """``y.redistribute(mesh, want)`` for a ``y`` that holds partial
+    sums, whose gradient is the incoming gradient placed as ``want`` too
+    (reduced there when it arrives as partial sums): the gradient of a
+    sum is the same for every one of its partial terms, so the incoming
+    gradient's value is the gradient of ``y`` in any layout.  DTensor's
+    own backward of a reduction hands on partial sums, and the products
+    that receive them gather their weights whole, where ``repro``'s
+    program (and Megatron's tensor-parallel layers) reduce the gradient
+    once and keep every product on its shards."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, want):
+        ctx.mesh, ctx.want = mesh, want
+        return y.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if any(p.is_partial() for p in grad.placements):
+            grad = grad.redistribute(ctx.mesh, ctx.want)
+        return grad, None, None
+
+
+def _redistribute(y, mesh, want):
+    if list(y.placements) == list(want):
+        return y
+    if any(p.is_partial() for p in y.placements):
+        return _Reduce.apply(y, mesh, tuple(want))
+    return y.redistribute(mesh, want)
+
+
+class _KeepGradLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if list(grad.placements) != list(ctx.placements):
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def keep_grad_layout(t):
+    """``t`` whose gradient comes back placed as ``t`` is (a DTensor on a
+    mesh; ``t`` itself otherwise).  The loss gathers the vocab-sharded
+    logits for its logsumexp, and DTensor would hand their gradient back
+    whole, so that the head's weight gradient is computed over the whole
+    vocabulary on every "model" rank; placed back as the logits were,
+    each rank computes its vocabulary shard's."""
+    return _KeepGradLayout.apply(t) if is_sharded(t) else t
+
+
+def as_residual(y, x):
+    """A sub-layer's output ``y`` placed as the residual stream ``x`` it
+    is added to (on a mesh; ``y`` itself otherwise): the partial sums of
+    a row-parallel product are reduced right there, as XLA's propagation
+    and Megatron's row-parallel layer reduce them, instead of being
+    carried on into the next sub-layer, where DTensor would choose
+    layouts ``repro``'s program does not have."""
+    if not (is_sharded(y) and is_sharded(x)):
+        return y
+    return _redistribute(y, x.device_mesh, x.placements)
 
 
 def gather_for_compute(params: Mapping[str, torch.Tensor],
@@ -463,3 +541,136 @@ def gather_for_compute(params: Mapping[str, torch.Tensor],
                 leaf = leaf.redistribute(mesh, want)
         out[name] = leaf
     return out
+
+
+# ---------------------------------------------------------------------------
+# decode caches on a mesh
+# ---------------------------------------------------------------------------
+
+def cache_zeros(name: str, shape, dtype, like: torch.Tensor
+                ) -> torch.Tensor:
+    """A zero cache leaf ``name`` of global ``shape``, made as ``like``
+    (an activation) is made: on its device, and fake when it is fake
+    (the dry run).  Under an active mesh a DTensor placed by
+    ``cache_spec``, each rank making only its block."""
+    mesh = current_mesh()
+    if mesh is None:
+        return local(like).new_zeros(tuple(shape), dtype=dtype)
+    from torch.distributed.tensor import DTensor
+    place_ = placements(cache_spec(name, shape, mesh), mesh)
+    block = list(shape)
+    for i, p in enumerate(place_):
+        if p.is_shard():
+            block[p.dim] //= mesh.size(i)
+    return DTensor.from_local(local(like).new_zeros(block, dtype=dtype),
+                              mesh, place_, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def _as_dtensor(t, mesh):
+    """``t`` as a DTensor on ``mesh``; a plain tensor is the full value,
+    the same on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_sharded(t):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def write_seq(cache: torch.Tensor, pos: int, new: torch.Tensor) -> None:
+    """``cache[:, pos:pos + S] = new`` in place (``new`` (B, S, ...)).  On
+    a mesh each rank writes the part of ``new`` that falls in its own
+    block of the cache: ``new`` is moved to the cache's placements (its
+    sequence axis whole), and where the cache's sequence axis is sharded
+    (context-parallel decode) only the rank whose block holds a position
+    writes it."""
+    S = new.shape[1]
+    if not is_sharded(cache):
+        cache[:, pos:pos + S] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+    mesh = cache.device_mesh
+    want = [Replicate() if p.is_shard(1) else p for p in cache.placements]
+    part = _as_dtensor(new, mesh).redistribute(mesh, want).to_local()
+    block = cache.to_local()
+    index = 0               # this rank's block of the sequence axis
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            index = index * mesh.size(i) + mesh.get_local_rank(i)
+    T = block.shape[1]
+    lo, hi = max(pos, index * T), min(pos + S, (index + 1) * T)
+    if lo < hi:
+        block[:, lo - index * T:hi - index * T] = \
+            part[:, lo - pos:hi - pos].to(block.dtype)
+
+
+def place_cache(cache: Optional[dict]) -> Optional[dict]:
+    """A block's cache (a dict of leaves, or None) with each leaf placed
+    by ``cache_spec`` under an active mesh (a leaf already so placed is
+    kept, so a cache written in place stays the caller's); ``cache``
+    itself without one."""
+    mesh = current_mesh()
+    if mesh is None or cache is None:
+        return cache
+    out = {}
+    for name, leaf in cache.items():
+        leaf = _as_dtensor(leaf, mesh)
+        want = placements(cache_spec(name, leaf.shape, mesh), mesh)
+        out[name] = (leaf if list(leaf.placements) == want
+                     else leaf.redistribute(mesh, want))
+    return out
+
+
+def local_over(fn, args, dims, out_dims):
+    """``fn(*args)`` on DTensors run on each rank's own blocks, for a
+    function independent per batch row and per head (or expert):
+    ``dims[i]`` gives arg ``i``'s (batch axis, head axis), either None;
+    ``out_dims`` each output's, whose head axis may be "partial": an
+    output summed over the heads, left as each rank's partial sum.  The
+    batch axis goes over the data axes when they divide it, the head
+    axis over "model" when it divides the heads (the first arg's with a
+    head axis), replicated otherwise.  No collective
+    runs inside (the backward reduces the gradient of an arg that every
+    share of the work used); plain tensors (no mesh) call ``fn`` as it
+    is."""
+    if not any(is_sharded(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = next(a for a in args if is_sharded(a)).device_mesh
+    names = mesh.mesh_dim_names
+    dp = math.prod(mesh.size(j) for j, a in enumerate(names)
+                   if a != "model")
+    B = next(a.shape[d[0]] for a, d in zip(args, dims) if d[0] is not None)
+    H = next((a.shape[d[1]] for a, d in zip(args, dims)
+              if d[1] is not None), 1)
+
+    def want(b, h):
+        out = []
+        for j, a in enumerate(names):
+            n = mesh.size(j)
+            if n == 1:
+                out.append(Replicate())
+            elif a == "model":
+                out.append(Replicate() if h is None or H % n else
+                           Partial() if h == "partial" else Shard(h))
+            else:
+                out.append(Shard(b) if b is not None and B % dp == 0
+                           else Replicate())
+        return out
+
+    # an arg replicated on a mesh axis that the call splits is used by
+    # every rank's share of the work: its gradient there is a partial sum
+    places = [want(*d) for d in dims]
+    split = {j for p in places for j, q in enumerate(p) if q.is_shard()}
+    loc = [_as_dtensor(a, mesh).redistribute(mesh, p).to_local(
+               grad_placements=[Partial() if j in split and q.is_replicate()
+                                else q for j, q in enumerate(p)])
+           for a, p in zip(args, places)]
+    outs = fn(*loc)
+    single = not isinstance(outs, tuple)
+    outs = (outs,) if single else outs
+    res = tuple(DTensor.from_local(o, mesh, want(*d), run_check=False)
+                for o, d in zip(outs, out_dims))
+    return res[0] if single else res

@@ -805,9 +805,8 @@ def phase_parity_small():
 
 
 def phase_small():
-    from repro_torch.core.graphdb import paper_toy_db, random_db
-    from repro_torch.core.host_miner import mine_host
-    from repro_torch.core.mining import Mirage, MirageConfig
+    from repro_torch.core import (Mirage, MirageConfig, mine_host,
+                                  paper_toy_db, random_db)
     dbs = [("paper_toy_db", paper_toy_db(), 2, None),
            ("random_db(18, seed=42)",
             random_db(18, n_vertices=6, extra_edge_prob=0.35, n_vlabels=3,
@@ -870,7 +869,7 @@ def generate_db(n_graphs: int, seed: int):
     """``pubchem_like_db(n_graphs, seed)`` and the seconds it took (run in
     the process pool, beside the card's work)."""
     use_src()
-    from repro_torch.core.graphdb import pubchem_like_db
+    from repro_torch.core import pubchem_like_db
     t0 = time.perf_counter()
     graphs = pubchem_like_db(n_graphs, seed=seed, avg_edges=28)
     return graphs, time.perf_counter() - t0

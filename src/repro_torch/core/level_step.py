@@ -65,8 +65,8 @@ from .embedding import LevelOL, materialize_one
 from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
 
 __all__ = ["LevelWire", "LevelOutputs", "PendingLevel", "dispatch_level",
-           "unpack_wire", "fetch_wire", "upload", "reassemble_wire",
-           "wire_words",
+           "run_level", "unpack_wire", "fetch_wire", "upload",
+           "reassemble_wire", "wire_words",
            "wire_cost_model", "wire_checksum", "level_program",
            "lpt_permutation", "permute_stores", "AUDIT_MONOTONIC",
            "AUDIT_COMPACT", "AUDIT_RANGE", "AUDIT_NKEEP"]
@@ -615,3 +615,10 @@ def dispatch_level(
     return PendingLevel(wire_d, new_pol, new_pmask, C_real, Cp,
                         n_partitions,
                         W if sharded else 1, level, packed)
+
+
+def run_level(*args, **kwargs) -> LevelOutputs:
+    """Dispatch one level and perform its single host sync:
+    ``dispatch_level(...).finish()``, the non-overlapped form, with
+    :func:`dispatch_level`'s signature."""
+    return dispatch_level(*args, **kwargs).finish()

@@ -33,7 +33,8 @@ import torch.distributed as dist
 
 from ..kernels.bitset import pack_bits, unpack_bits
 from ..kernels.ops import (device_local_supports, fused_level_supports,
-                           fused_level_supports_packed, is_fused_backend)
+                           fused_level_supports_packed, is_fused_backend,
+                           is_packed_backend)
 from .candgen import schedule_candidates
 from .embedding import LevelOL, materialize_ol
 
@@ -171,7 +172,7 @@ def _support_program_fused(mesh, sched_meta, tiles, inv, pol, pmask, src,
     every local partition and candidate tile.  Inputs are in scheduled
     (parent-grouped) order; the inverse permutation is applied before
     the shuffle, so the shuffle and the caller see canonical order."""
-    if backend == "fused_packed":
+    if is_packed_backend(backend):
         sup_pp, emb_pp_s, _vbits = fused_level_supports_packed(
             sched_meta, tiles, pol, pmask, src, dst, emask)
     else:

@@ -1,5 +1,5 @@
-"""Bit-packed graph bitsets on torch tensors: pack/unpack, popcount,
-tail masks.
+"""Bit-packed graph bitsets on torch tensors: pack/unpack, lane-AND/OR,
+popcount, tail masks, and the support path's byte model.
 
 Layout contract (DESIGN.md §12, identical to ``repro.kernels.bitset``):
 
@@ -12,14 +12,15 @@ CPU kernels do not shift ``uint32`` tensors (``<<``/``>>`` raise
 ``NotImplementedError``), so every helper computes in int64 with the
 value masked to 32 bits and converts to ``uint32`` only on the way out.
 The same code runs on any device; on a CUDA tensor the work stays on the
-card.
+card.  The lane ops also take numpy word arrays, as the JAX package's do.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["WORD", "n_words", "pack_bits", "unpack_bits", "popcount",
-           "tail_mask", "packed_any_count"]
+           "tail_mask", "lane_and", "lane_or", "packed_any_count",
+           "support_path_cost_model"]
 
 WORD = 32
 _MASK32 = 0xFFFFFFFF
@@ -79,6 +80,22 @@ def tail_mask(n: int, words: int | None = None,
     return pack_bits(torch.arange(w * WORD, device=device) < int(n))
 
 
+def lane_and(a, b):
+    """Lane-wise AND of packed words (set intersection); uint32 out for
+    tensors, the operands' own dtype for numpy arrays."""
+    if isinstance(a, torch.Tensor):
+        return (_as_i64(a) & _as_i64(b)).to(torch.uint32)
+    return a & b
+
+
+def lane_or(a, b):
+    """Lane-wise OR of packed words (set union; re-mask the tail if the
+    operands disagree about pad bits)."""
+    if isinstance(a, torch.Tensor):
+        return (_as_i64(a) | _as_i64(b)).to(torch.uint32)
+    return a | b
+
+
 def packed_any_count(words: torch.Tensor, n: int, dim: int = -1
                      ) -> torch.Tensor:
     """Count set bits of an ``n``-bit packed vector along ``dim`` — AND
@@ -89,3 +106,31 @@ def packed_any_count(words: torch.Tensor, n: int, dim: int = -1
     masked = _as_i64(words) & _as_i64(mask).reshape(shape)
     return popcount(masked).sum(dim, dtype=torch.int32)
 
+
+def support_path_cost_model(c: int, g: int, n_workers: int, *,
+                            packed: bool) -> dict:
+    """Modeled support-dimension bytes for one mining level (the JAX
+    package's model, ``repro.kernels.bitset.support_path_cost_model``):
+
+    * ``hbm_bytes`` — the (C, G) verdict lanes a dense backend carries as
+      int32 vs ``(C, ceil(G/32))`` 32-bit bitset words,
+    * ``collective_bytes`` — the per-worker verdict all-gather after
+      ``reduce_scatter`` thresholding (int8 lanes vs packed words),
+    * ``host_bytes`` — the per-worker gsup wire slice (int32 vs the
+      2x-uint16 packed words of the sharded wire).
+
+    The constants mirror ``core/level_step.py::wire_cost_model``."""
+    w = max(int(n_workers), 1)
+    ring = (w - 1) / w
+    cs = -(-int(c) // w)
+    if packed:
+        hbm = c * n_words(g) * 4
+        coll = ring * n_words(c) * 4
+        host = -(-cs // 2) * 4
+    else:
+        hbm = c * g * 4
+        coll = ring * c * 1
+        host = cs * 4
+    return {"hbm_bytes": float(hbm), "collective_bytes": float(coll),
+            "host_bytes": float(host),
+            "total_bytes": float(hbm + coll + host)}

@@ -44,8 +44,8 @@ BACKENDS = ("ref", "pallas", "fused", "fused_packed")
 
 __all__ = ["level_supports", "fused_level_supports",
            "fused_level_supports_packed", "device_local_supports",
-           "default_backend", "is_fused_backend", "check_backend",
-           "DEFAULT_TILE_G"]
+           "default_backend", "is_fused_backend", "is_packed_backend",
+           "check_backend", "DEFAULT_TILE_G"]
 
 # graph tile of the JAX package's kernels (repro/kernels/embedding_join.py)
 DEFAULT_TILE_G = 128
@@ -66,6 +66,10 @@ def check_backend(backend: str | None) -> None:
 
 def is_fused_backend(backend: str | None) -> bool:
     return backend in ("fused", "fused_packed")
+
+
+def is_packed_backend(backend: str | None) -> bool:
+    return backend == "fused_packed"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -158,7 +162,7 @@ def level_supports(meta, pol, pmask, src, dst, emask, *,
     sched_meta, tiles, inv = (torch.from_numpy(a).to(pol.device) for a in
                               (sched.meta, sched.tiles,
                                sched.inv.astype(np.int64)))
-    if backend == "fused_packed":
+    if is_packed_backend(backend):
         sup, emb, _ = fused_level_supports_packed(sched_meta, tiles, *stores,
                                                   tile_g=tile_g)
     else:

@@ -93,3 +93,42 @@ def test_reassemble_wire_matches_reference(cp, packed):
     flipped = wire.copy()
     flipped[1] ^= 1 << 7
     assert tls.reassemble_wire(flipped, 4, packed=packed, cp=cp) is None
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 45, 100])
+def test_lane_ops_then_count_equal_jax(n):
+    """Lane-AND/OR of seeded words (top bits set, pad bits dirtied past a
+    ragged n), then the masked count: the port's words and counts equal
+    the JAX package's, for uint32 tensors, int32 bit patterns and numpy."""
+    rng = np.random.default_rng(100 + n)
+    w = tbits.n_words(n)
+    a = rng.integers(0, 1 << 32, (5, w), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (5, w), dtype=np.uint32)
+    a[:, 0] |= np.uint32(1 << 31)
+    b[0] = 0xFFFFFFFF
+    for jop, top in ((jbits.lane_and, tbits.lane_and),
+                     (jbits.lane_or, tbits.lane_or)):
+        want = jop(a, b)
+        want_count = jbits.packed_any_count(want, n)
+        for ta, tb in ((torch.from_numpy(a), torch.from_numpy(b)),
+                       (torch.from_numpy(a.view(np.int32)),
+                        torch.from_numpy(b.view(np.int32)))):
+            got = top(ta, tb)
+            assert got.dtype == torch.uint32
+            np.testing.assert_array_equal(got.numpy(), want)
+            np.testing.assert_array_equal(
+                tbits.packed_any_count(got, n).numpy(), want_count)
+        np.testing.assert_array_equal(top(a, b), want)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n_workers", [1, 2, 3, 8, 256])
+def test_support_path_cost_model_equals_jax(n_workers, packed):
+    for c in (1, 31, 32, 33, 1000):
+        for g in (1, 31, 32, 33, 2048, 40000):
+            got = tbits.support_path_cost_model(c, g, n_workers,
+                                                packed=packed)
+            want = jbits.support_path_cost_model(c, g, n_workers,
+                                                 packed=packed)
+            assert got == want and list(got) == list(want)
+            assert all(type(v) is float for v in got.values())

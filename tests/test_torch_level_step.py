@@ -212,3 +212,47 @@ def test_retry_paths_match_reference(case, monkeypatch):
     assert got.total_overflow == ref.total_overflow
     oracle = mine_host(graphs, minsup, max_size=max_size)
     assert got.supports == {c: i.support for c, i in oracle.frequent.items()}
+
+
+@pytest.mark.parametrize("packed,sharded", [(False, False), (True, True)],
+                         ids=["dense-rs", "packed-rs-sharded"])
+def test_run_level_equals_dispatch_finish_and_jax(packed, sharded,
+                                                  monkeypatch):
+    """``run_level`` is ``dispatch_level(...).finish()``; the host wire its
+    one fetch verified equals ``repro``'s ``run_level`` wire word for
+    word, checksum included, and the decoded outputs agree."""
+    n_graphs, meta, stores, minsup, psup = _data()
+    C = meta.shape[0]
+    Cp = 64 * (-(-C // 64))
+    meta_p = _pad_meta(meta, Cp)
+    kw = dict(minsup=minsup, backend="ref", reduce="reduce_scatter",
+              max_embeddings=8, survivor_cap=C, child_width=8,
+              sched_floor=64, tile_c=4, level=2, sharded=sharded,
+              packed=packed, psup=psup, n_graphs=n_graphs, rebalance=True,
+              threshold=1.25)
+    wires = {}
+    for name, mod in (("jax", jls), ("port", tls)):
+        def recorded(host, *a, _name=name, _orig=mod.reassemble_wire,
+                     **k):
+            wires[_name] = np.array(host)
+            return _orig(host, *a, **k)
+        monkeypatch.setattr(mod, "reassemble_wire", recorded)
+    t_stores = [torch.from_numpy(a) for a in stores]
+    got = tls.run_level(TMesh(), meta_p, C, *t_stores, **kw)
+    port_wire = wires.pop("port")
+    again = tls.dispatch_level(TMesh(), meta_p, C, *t_stores, **kw).finish()
+    want = jls.run_level(JMesh.single_device(), meta_p, C,
+                         *(jnp.asarray(a) for a in stores), donate=False,
+                         **kw)
+    np.testing.assert_array_equal(port_wire, wires["port"])
+    np.testing.assert_array_equal(port_wire, wires["jax"])
+    for out in (again, want):
+        np.testing.assert_array_equal(got.wire.gsup, out.wire.gsup)
+        np.testing.assert_array_equal(got.wire.perm, out.wire.perm)
+        assert (got.wire.n_keep, got.wire.overflow, got.wire.rebalanced,
+                got.wire.imbalance, got.wire.audit) == (
+            out.wire.n_keep, out.wire.overflow, out.wire.rebalanced,
+            out.wire.imbalance, out.wire.audit)
+        np.testing.assert_array_equal(got.pol.numpy(), np.asarray(out.pol))
+        np.testing.assert_array_equal(got.pmask.numpy(),
+                                      np.asarray(out.pmask))

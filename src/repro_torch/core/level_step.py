@@ -57,7 +57,7 @@ import torch.distributed as dist
 from ..kernels.fused_level import DEFAULT_TILE_C
 from ..kernels.ops import (device_local_supports, fused_level_supports,
                            fused_level_supports_packed, is_fused_backend)
-from ..runtime import faults
+from ..runtime import faults, trace
 from ..runtime.errors import WireIntegrityError
 from .buckets import bucket_size
 from .candgen import pad_schedule, schedule_candidates
@@ -306,42 +306,44 @@ def level_program(mesh: MiningMesh, c_real: int, psup: torch.Tensor, *args,
             f"the sharded wire needs reduce='reduce_scatter' (each worker "
             f"owns a support slice), got reduce={reduce!r}")
     S = survivor_cap
-    if is_fused_backend(backend):
-        sched_meta, tiles, inv, pol, pmask, src, dst, emask = args
-        if packed:
-            sup_pp, emb_s, _vbits = fused_level_supports_packed(
-                sched_meta, tiles, pol, pmask, src, dst, emask)
+    # pass 1: the join (B1), the shuffle, the survivor compaction
+    with trace.device_span("level.pass1", psup.device):
+        if is_fused_backend(backend):
+            sched_meta, tiles, inv, pol, pmask, src, dst, emask = args
+            if packed:
+                sup_pp, emb_s, _vbits = fused_level_supports_packed(
+                    sched_meta, tiles, pol, pmask, src, dst, emask)
+            else:
+                sup_pp, emb_s = fused_level_supports(
+                    sched_meta, tiles, pol, pmask, src, dst, emask)
+            local_sup = sup_pp.sum(0, dtype=torch.int32).index_select(0, inv)
+            emb_pp = emb_s.index_select(1, inv)                  # (PP, Cp)
+            meta_can = sched_meta.index_select(0, inv)[:, :5]
         else:
-            sup_pp, emb_s = fused_level_supports(
-                sched_meta, tiles, pol, pmask, src, dst, emask)
-        local_sup = sup_pp.sum(0, dtype=torch.int32).index_select(0, inv)
-        emb_pp = emb_s.index_select(1, inv)                  # (PP, Cp)
-        meta_can = sched_meta.index_select(0, inv)[:, :5]
-    else:
-        meta_can, meta_host, pol, pmask, src, dst, emask = args
-        local_sup, _, emb_pp = device_local_supports(
-            meta_can if backend == "pallas" else meta_host, pol, pmask,
-            src, dst, emask, backend=backend, packed=packed)
-    dev = pol.device
+            meta_can, meta_host, pol, pmask, src, dst, emask = args
+            local_sup, _, emb_pp = device_local_supports(
+                meta_can if backend == "pallas" else meta_host, pol, pmask,
+                src, dst, emask, backend=backend, packed=packed)
+        dev = pol.device
 
-    # sharded: gsup stays this rank's (Cp/W,) key slice; only the
-    # verdicts are gathered
-    gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
-                                    gather_gsup=not sharded, packed=packed)
-    Cp = verdict.shape[0]
-    real = torch.arange(Cp, device=dev) < c_real
-    keep = (verdict != 0) & real
+        # sharded: gsup stays this rank's (Cp/W,) key slice; only the
+        # verdicts are gathered
+        gsup, verdict = reduce_supports(local_sup, mesh, minsup, reduce,
+                                        gather_gsup=not sharded, packed=packed)
+        Cp = verdict.shape[0]
+        real = torch.arange(Cp, device=dev) < c_real
+        keep = (verdict != 0) & real
 
-    # verdict-masked prefix-sum compaction: survivor i's compact slot is
-    # its rank among survivors; one scatter inverts rank -> id.  Ranks
-    # past the cap and non-survivors land in the extra slot S, dropped.
-    rank = keep.to(torch.int32).cumsum(0, dtype=torch.int32) - 1
-    n_keep = rank[-1] + 1
-    dest = torch.where(keep & (rank < S), rank, S).to(torch.int64)
-    surv = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_(
-        0, dest, torch.arange(Cp, dtype=torch.int64, device=dev))[:S]
-    cmeta = meta_can.index_select(0, surv)                   # (S, 5)
-    valid_s = torch.arange(S, device=dev) < n_keep           # (S,)
+        # verdict-masked prefix-sum compaction: survivor i's compact slot is
+        # its rank among survivors; one scatter inverts rank -> id.  Ranks
+        # past the cap and non-survivors land in the extra slot S, dropped.
+        rank = keep.to(torch.int32).cumsum(0, dtype=torch.int32) - 1
+        n_keep = rank[-1] + 1
+        dest = torch.where(keep & (rank < S), rank, S).to(torch.int64)
+        surv = torch.zeros(S + 1, dtype=torch.int64, device=dev).scatter_(
+            0, dest, torch.arange(Cp, dtype=torch.int64, device=dev))[:S]
+        cmeta = meta_can.index_select(0, surv)                   # (S, 5)
+        valid_s = torch.arange(S, device=dev) < n_keep           # (S,)
 
     # continuous invariant audit (§14): psup is PARENT-indexed (-1 =
     # unknown / padding); each candidate gathers its parent's support
@@ -375,13 +377,15 @@ def level_program(mesh: MiningMesh, c_real: int, psup: torch.Tensor, *args,
     mask = torch.zeros((PP, S, G, Mc), dtype=torch.bool, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     parents = LevelOL(pol, pmask)
-    for s in range(S):
-        ch, mk, over = materialize_one(parents, src, dst, emask, cmeta[s],
-                                       max_embeddings=Mc, out_width=Wk)
-        v = valid_s[s]
-        ol[:, s] = ch.masked_fill_(~v, -1)
-        mask[:, s] = mk & v
-        overflow += over * v
+    with trace.device_span("level.pass2", dev, slots=S):
+        for s in range(S):
+            ch, mk, over = materialize_one(parents, src, dst, emask,
+                                           cmeta[s], max_embeddings=Mc,
+                                           out_width=Wk)
+            v = valid_s[s]
+            ol[:, s] = ch.masked_fill_(~v, -1)
+            mask[:, s] = mk & v
+            overflow += over * v
 
     # one all-reduce for the counts every rank must agree on: the
     # overflow, and the audit counts (slice-local when sharded; summing
@@ -453,11 +457,12 @@ def _fetch_wire(wire_d: torch.Tensor, level: Optional[int],
     stays pristine.  A checksum mismatch triggers a bounded re-fetch
     from the device buffer, then :class:`WireIntegrityError` — never
     silently wrong supports."""
-    for _ in range(_WIRE_FETCH_ATTEMPTS):
+    for attempt in range(_WIRE_FETCH_ATTEMPTS):
         host = faults.corrupt_wire(_copy_to_host(wire_d), level)
         body = reassemble_wire(host, n_partitions, n_shards,
                                packed=packed, cp=cp)
         if body is not None:
+            trace.annotate("level.wait", refetches=attempt)
             return body
     raise WireIntegrityError(
         f"level wire failed checksum {_WIRE_FETCH_ATTEMPTS}x"
@@ -511,7 +516,8 @@ class PendingLevel:
     packed: bool = False       # gsup slices ship 2x uint16 per word
 
     def finish(self) -> LevelOutputs:
-        """Block on the wire (the one host sync), verify + decode it."""
+        """Block on the wire (the one host sync), verify + decode it.
+        ``Mirage`` traces this call as the span ``level.wait``."""
         wire = unpack_wire(
             _fetch_wire(self.wire_d, self.level, self.n_partitions,
                         self.n_shards, self.packed, self.Cp),

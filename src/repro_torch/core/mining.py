@@ -74,7 +74,7 @@ import torch.distributed as dist
 from ..kernels.ops import (Backend, check_backend, default_backend,
                            is_fused_backend)
 from ..runtime import checkpoint as ckpt
-from ..runtime import faults
+from ..runtime import faults, trace
 from ..runtime.errors import DeviceMemoryError
 from ..runtime.sharding import partition_block
 from ..runtime.watchdog import Watchdog
@@ -420,7 +420,14 @@ class Mirage:
         run: its run deadline raises ``DeadlineExceeded`` at a loop head,
         and a phase deadline is armed around every level.  With several
         ranks, either every rank's watchdog has a run deadline or none
-        has: the ranks agree on its expiry in a collective."""
+        has: the ranks agree on its expiry in a collective.  With tracing
+        on (``runtime/trace.py``) the call is the span ``fit``."""
+        with trace.span("fit"):
+            return self._fit(graphs, resume, watchdog, deadline_s)
+
+    def _fit(self, graphs: Sequence[Graph], resume: bool,
+             watchdog: Optional[Watchdog],
+             deadline_s: Optional[float]) -> DistMiningResult:
         cfg = self.cfg
 
         # peek the checkpoint first: the partition count is baked into
@@ -472,12 +479,16 @@ class Mirage:
 
         # ---- phase 2: preparation (host, once) -------------------------
         G = max((len(p) for p in part.partitions), default=1)
-        eols = [build_edge_ol(p, triples, pad_graphs=G, max_occ=cfg.max_occ)
-                for p in part.partitions]
-        F = max(e.src.shape[-1] for e in eols)
-        src = np.stack([_pad_f(e.src, F, -1) for e in eols])       # (NP,T,G,F)
-        dst = np.stack([_pad_f(e.dst, F, -1) for e in eols])
-        emask = np.stack([_pad_f(e.mask, F, False) for e in eols])
+        with trace.span("prep.edge_ol"):
+            eols = [build_edge_ol(p, triples, pad_graphs=G,
+                                  max_occ=cfg.max_occ)
+                    for p in part.partitions]
+            with trace.span("prep.edge_ol.stack"):
+                F = max(e.src.shape[-1] for e in eols)
+                # (NP, T, G, F)
+                src = np.stack([_pad_f(e.src, F, -1) for e in eols])
+                dst = np.stack([_pad_f(e.dst, F, -1) for e in eols])
+                emask = np.stack([_pad_f(e.mask, F, False) for e in eols])
         eol0 = eols[0]   # triple_index identical across partitions
 
         codes = [((0, 1, a, e, b),) for (a, e, b) in alphabet.canonical()]
@@ -487,21 +498,24 @@ class Mirage:
         M1 = max(cfg.max_embeddings, F)
         if bk is not None:
             M1 = bk.embeddings(M1, cfg.max_embeddings)
-        lvl1 = [level1_ol(codes, e, max_embeddings=M1) for e in eols]
-        pol = np.stack([l.ol.numpy() for l in lvl1])               # (NP,P,G,M,2)
-        pmask = np.stack([l.mask.numpy() for l in lvl1])
-        del lvl1
-        if bk is not None:
-            # bucket the level-1 store into the (P, K) family the child
-            # stores live in
-            pol, pmask = _pad_store(
-                pol, pmask, p_to=bucket_size(len(codes), bk.s_floor),
-                k_to=bk.vertex_slots(2))
+        with trace.span("prep.level1"):
+            lvl1 = [level1_ol(codes, e, max_embeddings=M1) for e in eols]
+            # (NP, P, G, M, 2)
+            pol = np.stack([l.ol.numpy() for l in lvl1])
+            pmask = np.stack([l.mask.numpy() for l in lvl1])
+            del lvl1
+            if bk is not None:
+                # bucket the level-1 store into the (P, K) family the
+                # child stores live in
+                pol, pmask = _pad_store(
+                    pol, pmask, p_to=bucket_size(len(codes), bk.s_floor),
+                    k_to=bk.vertex_slots(2))
 
-        supports: dict[Code, int] = {}
-        for c in codes:
-            ti = eol0.triple_index[c[0][2:]]
-            supports[c] = int(emask[:, ti].any(axis=-1).sum())
+            supports: dict[Code, int] = {}
+            with trace.span("prep.level1.supports"):
+                for c in codes:
+                    ti = eol0.triple_index[c[0][2:]]
+                    supports[c] = int(emask[:, ti].any(axis=-1).sum())
         levels: list[list[Code]] = [list(codes)]
         stats: list[LevelStats] = []
         total_overflow = 0
@@ -522,9 +536,10 @@ class Mirage:
 
         # this rank's block of the canonical partition order
         blk = partition_block(n_parts, self.mesh.rank, self.mesh.n_workers)
-        pol, pmask, src_d, dst_d, emask_d = (
-            torch.from_numpy(np.ascontiguousarray(x[blk])).to(self.device)
-            for x in (pol, pmask, src, dst, emask))
+        with trace.span("prep.upload"):
+            pol, pmask, src_d, dst_d, emask_d = (
+                torch.from_numpy(np.ascontiguousarray(x[blk])).to(self.device)
+                for x in (pol, pmask, src, dst, emask))
         del src, dst
         # cumulative partition permutation from straggler rebalancing;
         # checkpoints hold the store in CANONICAL order, so a resumed run
@@ -569,125 +584,140 @@ class Mirage:
         cand_rate: Optional[float] = None
         prev_dev = 0.0
         while cfg.max_size is None or k < cfg.max_size:
-            t0 = time.perf_counter()
-            expired = False
-            if wd is not None and wd.run_deadline_s is not None:
-                # cooperative run-deadline check at the loop head — the
-                # only place a DeadlineExceeded can safely unwind from
-                if fold_deadline:
-                    expired = wd.run_expired
+            with trace.span("level", k=k + 1) as lv:
+                t0 = time.perf_counter()
+                expired = False
+                if wd is not None and wd.run_deadline_s is not None:
+                    # cooperative run-deadline check at the loop head — the
+                    # only place a DeadlineExceeded can safely unwind from
+                    if fold_deadline:
+                        expired = wd.run_expired
+                    else:
+                        self._check_deadline(k + 1, wd.run_expired)
+                if cands is None and cfg.candgen == "device":
+                    # the stepping-stone device candgen: one
+                    # device_candidates run instead of the host generator
+                    # (None = a per-level budget overflow → the host
+                    # generator for this level)
+                    cands = self._device_candgen(levels[-1], triples)
+                if cands is None:
+                    with trace.span("level.candgen"):
+                        cands = generate_candidates(levels[-1], alphabet)
+                    if levels[-1]:
+                        r = (time.perf_counter() - t0) / len(levels[-1])
+                        cand_rate = (r if cand_rate is None
+                                     else 0.5 * (cand_rate + r))
+                if not cands:
+                    lv.set(C=0)
+                    break
+                # chaos hook: a scheduled worker death at this level
+                faults.maybe_raise("level_start", k + 1)
+                n_parents = len(levels[-1])
+                with trace.span("level.meta"):
+                    meta = candidate_meta(cands, eol0)
+                    C = meta.shape[0]
+                    Cp = (bk.candidates(C, self.mesh.n_workers)
+                          if bk is not None
+                          else round_up_multiple(C, self.mesh.n_workers))
+                    meta_p = np.concatenate(
+                        [meta, np.tile([[0, 0, 0, 1, 0]], (Cp - C, 1))]
+                    ).astype(np.int32)
+
+                # parent supports for the device audit word (§14), one int32
+                # per parent pattern (-1 = unknown)
+                # (the legacy pipeline computes no audit word)
+                psup = None
+                if cfg.audit and cfg.pipeline != "legacy":
+                    psup = np.array(
+                        [supports.get(p, -1) for p in levels[-1]], np.int32)
+                if wd is not None:
+                    # arm the phase deadline around the device work — the
+                    # stretch a hang would otherwise block unobserved
+                    wd.arm(level=k + 1)
+
+                if cfg.pipeline == "legacy":
+                    out = self._level_legacy(
+                        meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
+                        minsup, M, n_parts, level=k + 1)
                 else:
-                    self._check_deadline(k + 1, wd.run_expired)
-            if cands is None and cfg.candgen == "device":
-                # the stepping-stone device candgen: one device_candidates
-                # run instead of the host generator (None = a per-level
-                # budget overflow → the host generator for this level)
-                cands = self._device_candgen(levels[-1], triples)
-            if cands is None:
-                cands = generate_candidates(levels[-1], alphabet)
-                if levels[-1]:
-                    r = (time.perf_counter() - t0) / len(levels[-1])
+                    # child patterns (size k+1) have at most k+2 vertices;
+                    # the bucketed width reuses the parent store's while
+                    # it fits
+                    child_width = (bk.vertex_slots(k + 2,
+                                                   int(pol.shape[-1]))
+                                   if bk is not None else None)
+                    if (tile_pin is None and bk is not None
+                            and is_fused_backend(self.backend)):
+                        # level 2 is the widest, most parent-diverse
+                        # grouping the run will see; later levels reuse
+                        # its tile width
+                        tile_pin = schedule_candidates(meta).tile_c
+                    out = self._level_single_sync(
+                        meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
+                        minsup, M, history, child_width, level=k + 1,
+                        packed=packed, tile_c=tile_pin, cands=cands,
+                        alphabet=alphabet, cand_rate=cand_rate,
+                        spec_window=max(prev_dev, cfg.overlap_spec_window),
+                        psup=psup, n_graphs=n_graphs, expired=expired)
+                lv.set(C=C, S=out.survivor_cap, n_keep=len(out.keep),
+                       retried=out.retried, escalations=out.escalations)
+                if wd is not None:
+                    # feed the level's wall-time into the EWMA the next
+                    # phase deadline is derived from
+                    wd.disarm(observe_s=time.perf_counter() - t0)
+                if self.auditor is not None:
+                    with trace.span("level.audit"):
+                        self.auditor.check_wire(k + 1, out.audit)
+                        if len(out.keep):
+                            self.auditor.check_level(
+                                k + 1, cands=cands, keep=out.keep,
+                                gsup=out.gsup, parents=levels[-1],
+                                supports=supports)
+                prev_dev = max(out.map_seconds - out.candgen_seconds, 0.0)
+                if out.spec_cands is not None and cands:
+                    r = out.candgen_seconds / len(cands)
                     cand_rate = (r if cand_rate is None
                                  else 0.5 * (cand_rate + r))
-            if not cands:
-                break
-            # chaos hook: a scheduled worker death at this level
-            faults.maybe_raise("level_start", k + 1)
-            n_parents = len(levels[-1])
-            meta = candidate_meta(cands, eol0)
-            C = meta.shape[0]
-            Cp = (bk.candidates(C, self.mesh.n_workers) if bk is not None
-                  else round_up_multiple(C, self.mesh.n_workers))
-            meta_p = np.concatenate(
-                [meta, np.tile([[0, 0, 0, 1, 0]], (Cp - C, 1))]).astype(np.int32)
+                M = out.max_embeddings
+                total_overflow += out.overflow
 
-            # parent supports for the device audit word (§14), one int32
-            # per parent pattern (-1 = unknown)
-            # (the legacy pipeline computes no audit word)
-            psup = None
-            if cfg.audit and cfg.pipeline != "legacy":
-                psup = np.array(
-                    [supports.get(p, -1) for p in levels[-1]], np.int32)
-            if wd is not None:
-                # arm the phase deadline around the device work — the
-                # stretch a hang would otherwise block unobserved
-                wd.arm(level=k + 1)
+                if len(out.keep) == 0:
+                    stats.append(LevelStats(k + 1, C, 0, out.overflow,
+                                            time.perf_counter() - t0,
+                                            out.map_seconds, False,
+                                            out.imbalance, out.escalations,
+                                            out.candgen_seconds,
+                                            survivor_cap=out.survivor_cap,
+                                            retried=out.retried,
+                                            audit=out.audit))
+                    break
 
-            if cfg.pipeline == "legacy":
-                out = self._level_legacy(
-                    meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
-                    minsup, M, n_parts, level=k + 1)
-            else:
-                # child patterns (size k+1) have at most k+2 vertices;
-                # the bucketed width reuses the parent store's while it
-                # fits
-                child_width = (bk.vertex_slots(k + 2, int(pol.shape[-1]))
-                               if bk is not None else None)
-                if (tile_pin is None and bk is not None
-                        and is_fused_backend(self.backend)):
-                    # level 2 is the widest, most parent-diverse grouping
-                    # the run will see; later levels reuse its tile width
-                    tile_pin = schedule_candidates(meta).tile_c
-                out = self._level_single_sync(
-                    meta_p, meta, C, pol, pmask, src_d, dst_d, emask_d,
-                    minsup, M, history, child_width, level=k + 1,
-                    packed=packed, tile_c=tile_pin, cands=cands,
-                    alphabet=alphabet, cand_rate=cand_rate,
-                    spec_window=max(prev_dev, cfg.overlap_spec_window),
-                    psup=psup, n_graphs=n_graphs, expired=expired)
-            if wd is not None:
-                # feed the level's wall-time into the EWMA the next
-                # phase deadline is derived from
-                wd.disarm(observe_s=time.perf_counter() - t0)
-            if self.auditor is not None:
-                self.auditor.check_wire(k + 1, out.audit)
-                if len(out.keep):
-                    self.auditor.check_level(
-                        k + 1, cands=cands, keep=out.keep, gsup=out.gsup,
-                        parents=levels[-1], supports=supports)
-            prev_dev = max(out.map_seconds - out.candgen_seconds, 0.0)
-            if out.spec_cands is not None and cands:
-                r = out.candgen_seconds / len(cands)
-                cand_rate = (r if cand_rate is None
-                             else 0.5 * (cand_rate + r))
-            M = out.max_embeddings
-            total_overflow += out.overflow
+                pol, pmask = out.pol, out.pmask
+                src_d, dst_d, emask_d = out.src, out.dst, out.emask
+                levels.append([cands[i].code for i in out.keep])
+                for i in out.keep:
+                    supports[cands[i].code] = int(out.gsup[i])
+                if out.perm is not None:
+                    order = order[out.perm]
+                history.append((n_parents, C, len(out.keep)))
 
-            if len(out.keep) == 0:
-                stats.append(LevelStats(k + 1, C, 0, out.overflow,
+                stats.append(LevelStats(k + 1, C, len(out.keep),
+                                        out.overflow,
                                         time.perf_counter() - t0,
-                                        out.map_seconds, False, out.imbalance,
-                                        out.escalations, out.candgen_seconds,
+                                        out.map_seconds, out.rebalanced,
+                                        out.imbalance, out.escalations,
+                                        out.candgen_seconds,
                                         survivor_cap=out.survivor_cap,
-                                        retried=out.retried,
-                                        audit=out.audit))
-                break
+                                        retried=out.retried, audit=out.audit))
 
-            pol, pmask = out.pol, out.pmask
-            src_d, dst_d, emask_d = out.src, out.dst, out.emask
-            levels.append([cands[i].code for i in out.keep])
-            for i in out.keep:
-                supports[cands[i].code] = int(out.gsup[i])
-            if out.perm is not None:
-                order = order[out.perm]
-            history.append((n_parents, C, len(out.keep)))
-
-            stats.append(LevelStats(k + 1, C, len(out.keep), out.overflow,
-                                    time.perf_counter() - t0,
-                                    out.map_seconds, out.rebalanced,
-                                    out.imbalance, out.escalations,
-                                    out.candgen_seconds,
-                                    survivor_cap=out.survivor_cap,
-                                    retried=out.retried, audit=out.audit))
-
-            if cfg.checkpoint_dir:
-                self._save(cfg.checkpoint_dir, k + 1, levels, supports,
-                           pol, pmask, M, total_overflow, order)
-            # narrow this level's speculative superset to the surviving
-            # parents — provably equal to generate_candidates(F_{k+1})
-            cands = (filter_speculative(out.spec_cands, out.keep)
-                     if out.spec_cands is not None else None)
-            k += 1
+                if cfg.checkpoint_dir:
+                    self._save(cfg.checkpoint_dir, k + 1, levels, supports,
+                               pol, pmask, M, total_overflow, order)
+                # narrow this level's speculative superset to the surviving
+                # parents — provably equal to generate_candidates(F_{k+1})
+                cands = (filter_speculative(out.spec_cands, out.keep)
+                         if out.spec_cands is not None else None)
+                k += 1
 
         return DistMiningResult(levels, supports, stats, alphabet, minsup,
                                 total_overflow)
@@ -1184,14 +1214,15 @@ class Mirage:
         S = self._memory_cap(S, pol, M, child_width, level=level,
                              expired=expired)
         t_map = time.perf_counter()
-        pending = dispatch_level(
-            self.mesh, meta_p, C, pol, pmask, src, dst, emask,
-            minsup=minsup, backend=self.backend, reduce=cfg.reduce,
-            max_embeddings=M, survivor_cap=S, rebalance=cfg.rebalance,
-            threshold=cfg.rebalance_threshold, child_width=child_width,
-            sched_floor=bk.c_floor if bk is not None else None,
-            level=level, sharded=self._sharded_wire(),
-            packed=packed, tile_c=tile_c, psup=psup, n_graphs=n_graphs)
+        with trace.span("level.dispatch"):
+            pending = dispatch_level(
+                self.mesh, meta_p, C, pol, pmask, src, dst, emask,
+                minsup=minsup, backend=self.backend, reduce=cfg.reduce,
+                max_embeddings=M, survivor_cap=S, rebalance=cfg.rebalance,
+                threshold=cfg.rebalance_threshold, child_width=child_width,
+                sched_floor=bk.c_floor if bk is not None else None,
+                level=level, sharded=self._sharded_wire(),
+                packed=packed, tile_c=tile_c, psup=psup, n_graphs=n_graphs)
         self._stall_hook(level)
         # the overlap window: the device work is in flight, the host is
         # free — speculate the next level's candidates now
@@ -1201,12 +1232,16 @@ class Mirage:
             window = (cfg.overlap_spec_window if spec_window is None
                       else spec_window)
             est = (cand_rate or 0.0) * len(cands)
+            trace.annotate("level", spec_est_s=est, spec_window_s=window,
+                           spec_admitted=est <= window)
             if est <= window:
                 t_cand = time.perf_counter()
-                spec_cands = generate_candidates([c.code for c in cands],
-                                                 alphabet)
+                with trace.span("level.spec_candgen"):
+                    spec_cands = generate_candidates(
+                        [c.code for c in cands], alphabet)
                 cand_secs = time.perf_counter() - t_cand
-        out = pending.finish()
+        with trace.span("level.wait"):
+            out = pending.finish()
         w = out.wire
         map_secs = time.perf_counter() - t_map
 
@@ -1226,22 +1261,28 @@ class Mirage:
         escalatable = (cfg.escalate_on_overflow
                        and M < cfg.max_embeddings_limit)
         retried = bool(n > 0 and (n > S or (overflow > 0 and escalatable)))
+        # pass 2's slots that hold a survivor the next level keeps
+        trace.annotate("level.pass2", useful=0 if retried else min(n, S))
         if retried:
             del out, new_pol, new_pmask     # release the discarded store
-            if overflow > 0 and escalatable:
-                # the level just proved M too small: skip the known-bad
-                # M before re-materializing
-                M = min(M * 2, cfg.max_embeddings_limit)
-                escalations += 1
-            new_pol, new_pmask, overflow, M, esc = self._materialize_exact(
-                meta[keep], pol, pmask, src, dst, emask, M,
-                out_width=child_width, level=level)
-            escalations += esc
-            if bk is not None:
-                # re-bucket the retried store so the next level stays in
-                # the family
-                new_pol, new_pmask = _pad_store(
-                    new_pol, new_pmask, p_to=bk.survivors(len(keep), Cp))
+            with trace.span("level.retry") as sp:
+                if overflow > 0 and escalatable:
+                    # the level just proved M too small: skip the
+                    # known-bad M before re-materializing
+                    M = min(M * 2, cfg.max_embeddings_limit)
+                    escalations += 1
+                new_pol, new_pmask, overflow, M, esc = (
+                    self._materialize_exact(
+                        meta[keep], pol, pmask, src, dst, emask, M,
+                        out_width=child_width, level=level))
+                escalations += esc
+                if bk is not None:
+                    # re-bucket the retried store so the next level stays
+                    # in the family
+                    new_pol, new_pmask = _pad_store(
+                        new_pol, new_pmask,
+                        p_to=bk.survivors(len(keep), Cp))
+                sp.set(materializations=esc + 1, M=M)
 
         rebalanced = w.rebalanced and n > 0
         if rebalanced:

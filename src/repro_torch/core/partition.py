@@ -24,6 +24,7 @@ from typing import Sequence
 
 import numpy as np
 
+from ..runtime import trace
 from .graphdb import Graph, validate_db
 from .host_miner import frequent_edges
 from .candgen import EdgeAlphabet
@@ -83,7 +84,8 @@ def make_partitions(
         # the load boundary: user input is validated HERE, before any
         # filtering (keep_edges legitimately empties graphs later).
         # An empty database stays exempt per the contract above.
-        validate_db(graphs)
+        with trace.span("prep.partition.validate"):
+            validate_db(graphs)
     if n_partitions < 1:
         raise ValueError(f"n_partitions={n_partitions} must be >= 1")
     if n and n_partitions > n:
@@ -93,8 +95,16 @@ def make_partitions(
             f"n_partitions or pass more graphs)")
     abs_minsup = (int(np.ceil(minsup * n)) if isinstance(minsup, float)
                   else int(minsup))
-    filtered, alphabet = filter_infrequent_edges(graphs, abs_minsup)
+    with trace.span("prep.partition.filter"):
+        filtered, alphabet = filter_infrequent_edges(graphs, abs_minsup)
+    with trace.span("prep.partition.split"):
+        return _split(filtered, alphabet, abs_minsup, n_partitions, scheme)
 
+
+def _split(filtered: list[Graph], alphabet: EdgeAlphabet, abs_minsup: int,
+           n_partitions: int, scheme: int | str) -> PartitionResult:
+    """The filtered graphs dealt into ``n_partitions`` by ``scheme``."""
+    n = len(filtered)
     ids = list(range(n))
     parts: list[list[int]] = [[] for _ in range(n_partitions)]
     if scheme == 1:

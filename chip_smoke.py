@@ -68,7 +68,8 @@ is present, or when the port is not next to it.  Phases:
  11. device-loop — run right after phase 4: ``pipeline="device_loop"``,
                the whole run queued on the card with no host read
                between levels (device candgen, canonicality machine and
-               schedule, then B1 / B2 / B3 + B4 in each level body), on
+               schedule, then B1 / B2 / B3 + B4 and pass 2's kernel in
+               each level body), on
                the 18-graph DB of ``tests/test_device_loop.py`` with the
                packed and dense fused kernels and the two-launch kernels
                (and ``candgen="device"`` once), then phase 4's database
@@ -81,8 +82,8 @@ is present, or when the port is not next to it.  Phases:
                ended there), is held against its plain version on the
                same inputs (device-built schedule, pad rows and tiles,
                SPP-slot stores; max abs err 0).  The 40K run's bodies
-               are timed with CUDA events (with the share of pass 2
-               spent on slots past the survivors), and one more body
+               are timed with CUDA events (with pass 2's launch in each
+               body of the last run), and one more body
                with no parents left, on its final carry, times a level
                past the fixpoint.
  12. examples — ``examples/quickstart_torch.py`` on the card (the toy
@@ -229,7 +230,9 @@ phase instead of hanging it; gloo stages phase 8's collectives through
 host memory.
 
 Every main run counts kernel launches (set to 0 just before the run,
-read just after) and checks the frequent set against ``mine_host``
+read just after; pass 2's kernel once a dispatched level and once a
+materialization of the retry path or the legacy pipeline) and checks
+the frequent set against ``mine_host``
 (phases 6, 7 and 10 against phase 4's oracle result); the two main
 databases and their oracles are made in a pool of processes started
 with the script, beside the card's work.  The single-sync runs
@@ -250,6 +253,9 @@ are both timed (CUDA events; a kernel over batches of 10 back-to-back
 launches, so that the wrapper's host work hides behind the device's),
 with the one PyTorch call that computes the same function where there
 is one (for the reduction, ``torch.sum`` x2 in turns with the kernel).
+Phase 4 also hands level 3's pass-2 inputs, from a third fit ended at
+that call, to pass 2's kernel and its plain version (the per-slot loop),
+exact and both timed.
 The three join kernels' work counts at those inputs are printed too
 (rows joined, (row, partition, graph) triples inside both mask spans,
 slot pairs inside the spans, set (m, f) pairs); for the two-launch join
@@ -277,12 +283,15 @@ REPLACES = {
     "fused_level": "src/repro/kernels/fused_level.py:194",
     "embedding_join": "src/repro/kernels/embedding_join.py:98",
     "support_count": "src/repro/kernels/support_count.py:41",
+    # no Pallas kernel: the JAX level step's per-slot lax.cond
+    "materialize_level": "src/repro/core/level_step.py:496",
 }
 SOURCES = {
     "fused_level_packed": "src/repro_torch/kernels/csrc/fused_level.cu",
     "fused_level": "src/repro_torch/kernels/csrc/fused_level.cu",
     "embedding_join": "src/repro_torch/kernels/csrc/two_launch.cu",
     "support_count": "src/repro_torch/kernels/csrc/two_launch.cu",
+    "materialize_level": "src/repro_torch/kernels/csrc/materialize.cu",
 }
 # the 40K main run's configuration (phases 4, 6 and 7)
 MAIN_CFG = dict(minsup=0.15, n_partitions=8, max_size=4)
@@ -583,6 +592,32 @@ def join_bound(args, outputs) -> tuple[float, str, dict]:
     return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops})
 
 
+def materialize_bound(args, outputs) -> tuple[float, str, dict]:
+    """Least time of one pass-2 call: the candidate rows and the survivor
+    count read; for each live slot (below the survivor count), its
+    parent's and its triple's mask rows in full, the K slots of every set
+    parent embedding and src and dst of every set edge occurrence; the
+    child store, its mask and the overflow written once.  Compares: per
+    live slot, every set parent embedding against every set edge
+    occurrence of the same graph."""
+    import torch
+    cmeta, n_keep, pol, pmask, src, dst, emask = args
+    K, F = pol.shape[-1], src.shape[-1]
+    live = cmeta[:min(int(n_keep), cmeta.shape[0])].long().cpu()
+    nm = pmask.to(torch.int64).sum(-1)           # (PP, P, G) set embeddings
+    nf = emask.to(torch.int64).sum(-1)           # (PP, T, G) set occurrences
+    par, tri = live[:, 0].to(pol.device), live[:, 4].to(pol.device)
+    nm_s, nf_s = nm[:, par], nf[:, tri]          # (PP, n_live, G)
+    nbytes = cmeta.numel() * 4 + 4
+    nbytes += nm_s.numel() * (pmask.shape[-1] * pmask.element_size()
+                              + F * emask.element_size())
+    nbytes += int(nm_s.sum()) * K * 4 + int(nf_s.sum()) * (4 + 4)
+    nbytes += sum(o.numel() * o.element_size() for o in outputs)
+    ops = int((nm_s * nf_s).sum())
+    return (*bound(nbytes, ops), {"bytes": nbytes, "ops": ops,
+                                  "live": int(live.shape[0])})
+
+
 def reduce_bound(matched, outputs) -> tuple[float, str, dict]:
     """Least time of one reduction call: both (PP, C, G) inputs read
     once, both (PP, C) outputs written once; one add per input
@@ -599,8 +634,9 @@ def reduce_bound(matched, outputs) -> tuple[float, str, dict]:
 
 def counter_modules():
     """The kernel wrapper modules, each with its ``launches`` counts."""
-    from repro_torch.kernels import embedding_join, fused_level, support_count
-    return fused_level, embedding_join, support_count
+    from repro_torch.kernels import (embedding_join, fused_level,
+                                     materialize, support_count)
+    return fused_level, embedding_join, support_count, materialize
 
 
 def launch_counts() -> dict:
@@ -958,10 +994,12 @@ class PrepBeside:
 
 @contextlib.contextmanager
 def level_guard(sync_debug: bool):
-    """Count the single-sync level dispatches and each level's wire
-    fetches, every device→host copy of the wire including re-fetches
-    (yielded as ``{"dispatch": n, "fetch": {level: n}, "log": [...]}``,
-    the log holding ("dispatch", level) and ("fetch", level) in order);
+    """Count the single-sync level dispatches, each level's wire
+    fetches, every device→host copy of the wire including re-fetches,
+    and the materializations of the retry path and the legacy pipeline
+    that have survivors (yielded as ``{"dispatch": n, "fetch": {level:
+    n}, "materialize": n, "log": [...]}``, the log holding ("dispatch",
+    level) and ("fetch", level) in order);
     with ``sync_debug`` every dispatch runs under sync debug mode
     'error', so that a device→host read inside it raises."""
     import torch
@@ -970,7 +1008,8 @@ def level_guard(sync_debug: bool):
     orig_dispatch = mining.dispatch_level
     orig_fetch = level_step._fetch_wire
     orig_copy = level_step._copy_to_host
-    counts = {"dispatch": 0, "fetch": {}, "log": []}
+    orig_materialize = mining.map_materialize
+    counts = {"dispatch": 0, "fetch": {}, "materialize": 0, "log": []}
     fetching = [None]
 
     def guarded_dispatch(*args, **kw):
@@ -995,15 +1034,21 @@ def level_guard(sync_debug: bool):
         counts["log"].append(("fetch", level))
         return orig_copy(wire_d)
 
+    def counted_materialize(mesh, keep_meta, *args, **kw):
+        counts["materialize"] += len(keep_meta) > 0
+        return orig_materialize(mesh, keep_meta, *args, **kw)
+
     mining.dispatch_level = guarded_dispatch
     level_step._fetch_wire = counted_fetch
     level_step._copy_to_host = counted_copy
+    mining.map_materialize = counted_materialize
     try:
         yield counts
     finally:
         mining.dispatch_level = orig_dispatch
         level_step._fetch_wire = orig_fetch
         level_step._copy_to_host = orig_copy
+        mining.map_materialize = orig_materialize
 
 
 def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
@@ -1047,6 +1092,13 @@ def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
               f"fetches for {n_levels} levels")
     check(all(w == 0 for w in audits),
           f"audit words {audits} (0 = every device check passed)")
+    # pass 2: one launch a dispatched level, one a materialization of
+    # the retry path (the legacy pipeline's every level)
+    check(launches["materialize_level"]
+          == counts["dispatch"] + counts["materialize"],
+          f"materialize_level launched {launches['materialize_level']} "
+          f"times for {counts['dispatch']} dispatches and "
+          f"{counts['materialize']} retry materializations")
     say(f"phase {label}: {cfg.pipeline} backend={miner.backend} fit "
         f"{secs:.2f}s, frequent per level {res.counts()}, "
         f"{sum(res.counts())} in all, minsup {res.minsup}, peak device "
@@ -1072,7 +1124,10 @@ def main_run(label: str, graphs, packed: bool, want, **cfg_kw):
             f"ready {time.perf_counter() - t2:.1f}s after the fit")
     check(sorted(res.supports.items()) == want,
           "the frequent set differs from mine_host")
-    say(f"phase {label}: frequent set and supports equal mine_host")
+    say(f"phase {label}: frequent set and supports equal mine_host; pass "
+        f"2 launched {launches['materialize_level']} times ("
+        f"{counts['dispatch']} dispatches, {counts['materialize']} retry "
+        f"materializations)")
     return res, launches, secs, want, peak
 
 
@@ -1138,30 +1193,32 @@ class Captured(Exception):
 @contextlib.contextmanager
 def kernel_calls(stop_at_first: bool = False):
     """Record the arguments of every call that the ops layer makes to
-    the join kernels B1, B2 and B3 (yielded as a list of (name, args));
-    with ``stop_at_first``, raise :class:`Captured` at the first call,
-    before it launches, so that the fit holds no store past it."""
+    the join kernels B1, B2 and B3, and that the device loop makes to
+    pass 2's kernel (yielded as a list of (name, args, keywords)); with
+    ``stop_at_first``, raise :class:`Captured` at the first call, before
+    it launches, so that the fit holds no store past it."""
+    import repro_torch.core.device_loop as dl
     import repro_torch.kernels.ops as ops
     names = ("fused_level_packed", "fused_level", "embedding_join")
-    orig = {n: getattr(ops, n) for n in names}
+    orig = {(ops, n): getattr(ops, n) for n in names}
+    orig[dl, "materialize_level"] = dl.materialize_level
     calls = []
 
-    def wrap(name):
+    def wrap(mod, name):
         def call(*args, **kw):
-            check(not kw, f"{name}: called with keywords {sorted(kw)}")
-            calls.append((name, args))
+            calls.append((name, args, kw))
             if stop_at_first:
                 raise Captured(name)
-            return orig[name](*args)
+            return orig[mod, name](*args, **kw)
         return call
 
-    for n in names:
-        setattr(ops, n, wrap(n))
+    for mod, n in orig:
+        setattr(mod, n, wrap(mod, n))
     try:
         yield calls
     finally:
-        for n, fn in orig.items():
-            setattr(ops, n, fn)
+        for (mod, n), fn in orig.items():
+            setattr(mod, n, fn)
 
 
 def hold_calls_against_plain(label: str, calls) -> dict:
@@ -1171,18 +1228,21 @@ def hold_calls_against_plain(label: str, calls) -> dict:
     are not counted."""
     import torch
     from repro_torch.kernels import fused_level as fl
+    from repro_torch.kernels import materialize as mat
     from repro_torch.kernels import ref
     from repro_torch.kernels.embedding_join import embedding_join
     from repro_torch.kernels.support_count import support_count
     pairs = {"fused_level_packed": (fl.fused_level_packed,
                                     fl.fused_level_packed_ref),
              "fused_level": (fl.fused_level, fl.fused_level_ref),
-             "embedding_join": (embedding_join, ref.embedding_join_ref)}
+             "embedding_join": (embedding_join, ref.embedding_join_ref),
+             "materialize_level": (mat.materialize_level,
+                                   mat.materialize_level_ref)}
     before = launch_counts()
     held = {}
-    for name, args in calls:
+    for name, args, kw in calls:
         kernel, plain = pairs[name]
-        outs = [(name, kernel(*args), plain(*args))]
+        outs = [(name, kernel(*args, **kw), plain(*args, **kw))]
         if name == "embedding_join":
             joined = outs[0][1]
             outs.append(("support_count", support_count(*joined),
@@ -1202,7 +1262,9 @@ def schedule_shape(calls) -> str:
     """The device-built schedules and stores of captured B1/B2 calls:
     rows, pad rows (valid = 0), tiles, and the stores' (SPP, M)."""
     out = []
-    for name, args in calls:
+    for name, args, _ in calls:
+        if name == "materialize_level":
+            continue
         if name == "embedding_join":
             meta, pol = args[0], args[1]
             out.append(f"meta {meta.shape[0]} rows, store SPP "
@@ -1219,15 +1281,15 @@ def schedule_shape(calls) -> str:
 @contextlib.contextmanager
 def body_events():
     """Stamp each level body of the device loop with CUDA events (no
-    host read): at its start (its candgen), around each pass-2 slot and
+    host read): at its start (its candgen), around its pass-2 launch and
     at the run wire that ends a program call, with the host's clock at
     the same points.  Yields the list of bodies, each ``{"start": event,
-    "host": seconds, "slots": [(event, event)], "end": event,
-    "host_end": seconds}``."""
+    "host": seconds, "pass2": (event, event), "end": event, "host_end":
+    seconds}``."""
     import torch
     import repro_torch.core.device_loop as dl
     orig = {n: getattr(dl, n)
-            for n in ("device_candidates", "materialize_one", "run_wire")}
+            for n in ("device_candidates", "materialize_level", "run_wire")}
     bodies = []
 
     def stamp():
@@ -1240,14 +1302,13 @@ def body_events():
         if bodies and "end" not in bodies[-1]:
             bodies[-1]["end"] = ev
             bodies[-1]["host_end"] = time.perf_counter()
-        bodies.append({"start": ev, "host": time.perf_counter(),
-                       "slots": []})
+        bodies.append({"start": ev, "host": time.perf_counter()})
         return orig["device_candidates"](*args, **kw)
 
     def materialize(*args, **kw):
         e0 = stamp()
-        out = orig["materialize_one"](*args, **kw)
-        bodies[-1]["slots"].append((e0, stamp()))
+        out = orig["materialize_level"](*args, **kw)
+        bodies[-1]["pass2"] = (e0, stamp())
         return out
 
     def wire(carry):
@@ -1256,7 +1317,7 @@ def body_events():
         return orig["run_wire"](carry)
 
     dl.device_candidates = candidates
-    dl.materialize_one = materialize
+    dl.materialize_level = materialize
     dl.run_wire = wire
     try:
         yield bodies
@@ -1266,9 +1327,10 @@ def body_events():
 
 
 # the launches of one level body, per device-loop backend
-BODY_KERNELS = {"fused_packed": ("fused_level_packed",),
-                "fused": ("fused_level",),
-                "pallas": ("embedding_join", "support_count")}
+BODY_KERNELS = {"fused_packed": ("fused_level_packed", "materialize_level"),
+                "fused": ("fused_level", "materialize_level"),
+                "pallas": ("embedding_join", "support_count",
+                           "materialize_level")}
 
 
 def device_loop_fit(graphs, hooks=(), **cfg_kw):
@@ -1321,22 +1383,15 @@ def dead_body_seconds(counts) -> float:
     return secs
 
 
-def body_split(bodies, n_levels: int, n_keep: list[int]):
+def body_split(bodies, n_levels: int):
     """Per-body milliseconds (device clock, start to next start), the
     host's milliseconds to queue it, and for the last run's bodies the
-    share of pass 2 spent on slots past the survivors (masked)."""
+    milliseconds of pass 2's launch."""
     ms = [round(b["start"].elapsed_time(b["end"]), 1) for b in bodies]
     host = [round(1e3 * (b["host_end"] - b["host"]), 1) for b in bodies]
-    masked, pass2 = [], []
-    for b, keep in zip(bodies[-n_levels:], n_keep):
-        slots = b["slots"]
-        total = slots[0][0].elapsed_time(slots[-1][1])
-        valid = min(keep, len(slots))
-        tail = (slots[valid][0].elapsed_time(slots[-1][1])
-                if valid < len(slots) else 0.0)
-        pass2.append(round(total, 1))
-        masked.append(round(tail / total, 3))
-    return ms, host, pass2, masked
+    pass2 = [round(b["pass2"][0].elapsed_time(b["pass2"][1]), 3)
+             for b in bodies[-n_levels:]]
+    return ms, host, pass2
 
 
 def check_body_launches(label, backend, launches, counts):
@@ -1384,8 +1439,12 @@ def phase_device_loop_small() -> None:
               f"mine_host")
         check_body_launches(f"device loop {backend}", backend, launches,
                             counts)
-        check(len(calls) == counts["bodies"],
-              f"device loop {backend}: {len(calls)} kernel calls captured "
+        per_name = {}
+        for name, _, _ in calls:
+            per_name[name] = per_name.get(name, 0) + 1
+        check(per_name == {name: counts["bodies"] for name in
+                           BODY_KERNELS[backend] if name != "support_count"},
+              f"device loop {backend}: kernel calls captured {per_name} "
               f"over {counts['bodies']} bodies")
         held = hold_calls_against_plain(f"device loop {backend}", calls)
         say(f"phase 11 device-loop: random_db(18, seed=42) backend="
@@ -1440,8 +1499,8 @@ def phase_device_loop_main(graphs40, want40, single_sync, card: str) -> None:
     runs = info["escalations"] + 1
     m_runs = [info["max_embeddings"] >> (runs - 1 - i) for i in range(runs)]
     n_levels = info["n_levels"]
-    ms, host, pass2, masked = body_split(
-        bodies, n_levels, (res.counts()[1:] + [0] * n_levels)[:n_levels])
+    ms, host, pass2 = body_split(bodies, n_levels)
+    n_keep = (res.counts()[1:] + [0] * n_levels)[:n_levels]
     say(f"phase 11 device-loop 40K ({card}): fit {secs:.2f}s, levels "
         f"{sum(st.seconds for st in res.stats):.2f}s (one run program), "
         f"peak device memory {peak} bytes, "
@@ -1454,8 +1513,8 @@ def phase_device_loop_main(graphs40, want40, single_sync, card: str) -> None:
     say(f"phase 11 device-loop 40K bodies ({card}; CUDA events, a body "
         f"from its candgen to the next body's or the run wire): ms "
         f"{ms}, host ms to queue each {host}; last run: pass 2 ms "
-        f"{pass2}, share of pass 2 on slots past the survivors "
-        f"{masked}")
+        f"{pass2} (one launch a body; survivors per body {n_keep} of "
+        f"SPP {counts['spp'][-1]}, the slots past them skipped)")
     say(f"phase 11 device-loop 40K beside phase 4's single-sync: fit "
         f"{secs:.2f}s (on phase 4's host prep) vs {secs4:.2f}s, Σ level s "
         f"{sum(st.seconds for st in res.stats):.2f} vs {level_s:.2f}, "
@@ -1507,6 +1566,79 @@ def level2_inputs(graphs, wrapped: str, **cfg_kw):
         restore_launch_counts(before)
     check(bool(captured), f"{wrapped}: level 2 never reached the kernel")
     return captured[0]
+
+
+def level3_pass2_inputs(graphs):
+    """The arguments and keywords of level 3's pass-2 call in the main
+    run's level program (``MAIN_CFG``), from a second fit ended at that
+    call, before it launches (its launches are not counted; its host
+    prep is the main run's where a ``prep_memo`` is open)."""
+    import repro_torch.core.level_step as level_step
+    import repro_torch.core.mining as mining
+    orig = level_step.materialize_level
+    captured = []
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        if len(captured) == 2:          # levels 2, 3
+            raise Captured("materialize_level")
+        return orig(*args, **kw)
+
+    before = launch_counts()
+    level_step.materialize_level = capture
+    try:
+        mining.Mirage(mining.MirageConfig(**MAIN_CFG)).fit(graphs)
+    except Captured:
+        pass
+    finally:
+        level_step.materialize_level = orig
+        restore_launch_counts(before)
+    check(len(captured) == 2, "level 3 never reached pass 2")
+    return captured[1]
+
+
+def materialize_record(args, kw, launches: int) -> dict:
+    """Hold pass 2's kernel against its plain version (the per-slot
+    ``materialize_one`` loop) on the main run's level-3 inputs, exactly,
+    time both and compute the bound.  The plain version runs once (it
+    takes seconds at these shapes); the two outputs are dropped before
+    the kernel is timed, so that the card holds one child store at a
+    time."""
+    import torch
+    from repro_torch.kernels import materialize as mat
+    cmeta, n_keep, pol, pmask, src, dst, emask = args
+    before = launch_counts()
+    got = mat.materialize_level(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = mat.materialize_level_ref(*args, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # slot by slot: an int64 copy of the whole child store would not fit
+    err = 0
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        err = max(max_abs_err([a[:, s] for a in got[:2]],
+                              [b[:, s] for b in want[:2]])
+                  for s in range(cmeta.shape[0]))
+        err = max(err, max_abs_err(got[2:], want[2:]))
+    check(err == 0, f"materialize_level disagrees with its plain version "
+                    f"on the main run's level-3 inputs (max abs err {err})")
+    bound_ms, bound_by, work = materialize_bound(args, got)
+    ol_shape, over = tuple(got[0].shape), int(got[2].sum())
+    del got, want
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: mat.materialize_level(*args, **kw), runs=5,
+                 batch=10)
+    restore_launch_counts(before)      # comparison launches do not count
+    say(f"materialize_level: level-3 inputs cmeta {tuple(cmeta.shape)} "
+        f"n_keep {int(n_keep)} pol {tuple(pol.shape)} src "
+        f"{tuple(src.shape)} -> ol {ol_shape}, overflow {over}; exact vs "
+        f"plain; kernel {ms:.4f} ms (median of 5 batches of 10), plain "
+        f"{plain_ms:.3f} ms (one call), bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({work['bytes']} bytes, {work['ops']} pair compares, "
+        f"{work['live']} live slots); launches in the main run {launches}")
+    return record("materialize_level", launches, err, ms, plain_ms,
+                  bound_ms, bound_by)
 
 
 def record(name: str, launches: int, err: int, ms: float, plain_ms: float,
@@ -2020,8 +2152,11 @@ def phase_supervised(graphs40, want40) -> None:
           f"phase 10: faults fired {fired}")
     check(sup.last_miner.backend == "pallas",
           f"phase 10: the last attempt ran backend {sup.last_miner.backend}")
+    # pass 2: attempt 1's level 2 and its retry (level 3 faults before
+    # its work), attempt 2's three levels and the retries of 2 and 3
     check(launches == {"fused_level_packed": 1, "fused_level": 0,
-                       "embedding_join": 3, "support_count": 3},
+                       "embedding_join": 3, "support_count": 3,
+                       "materialize_level": 7},
           f"phase 10: kernel launches {launches}")
     check(attempts == [{2: 1}, {2: 1, 3: 1, 4: 2}],
           f"phase 10: wire copies per attempt and level {attempts}")
@@ -3837,6 +3972,11 @@ def main() -> int:
                     launches4["fused_level_packed"])
                 del args4
                 torch.cuda.empty_cache()
+                args4, kw4 = level3_pass2_inputs(graphs40)
+                rec_mat = materialize_record(
+                    args4, kw4, launches4["materialize_level"])
+                del args4, kw4
+                torch.cuda.empty_cache()
             with phase("phase 6"):
                 res6, launches6, _, _, _ = main_run(
                     "6 two-launch", graphs40, True, want40,
@@ -3924,7 +4064,8 @@ def main() -> int:
     say(f"every phase passed in {CLOCK.used():.1f}s")
     print(json.dumps({"phase_seconds": CLOCK.seconds}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two]}),
+    print(json.dumps({"kernels": [rec_packed, rec_dense, *recs_two,
+                                  rec_mat]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ stream with no device→host read anywhere in it:
   3. shuffle — ``mapreduce.reduce_supports`` with the supports gathered
      on every rank (the run outputs need them all);
   4. reduce — verdict-masked prefix-sum compaction of the survivors into
-     the SPP parent slots, ``materialize_one`` per slot;
+     the SPP parent slots, then pass 2 as one
+     ``kernels.materialize.materialize_level`` launch over the slots;
   5. bookkeeping — the level's stats row (candidates, survivors,
      overflow, imbalance, bail flags), survivor supports and codes
      written at the level's slot of the run outputs.
@@ -58,10 +59,10 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.materialize import materialize_level
 from ..kernels.ops import (device_local_supports, fused_level_supports,
                            fused_level_supports_packed, is_fused_backend)
 from .candgen import device_candidates, device_schedule
-from .embedding import LevelOL, materialize_one
 from .level_step import _IMBAL_FX, upload, wire_checksum
 from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
 
@@ -175,7 +176,7 @@ def _body(c: RunCarry, k: int, triples, src, dst, emask, *,
     so that no caller holds the parent store past the body: two stores
     (parent and child) are alive at any time."""
     SPP = c.codes.shape[0]
-    PP, _, G, M, K = c.pol.shape
+    M, K = c.pol.shape[-2:]
     dev = c.pol.device
     live = (c.n_par > 0) & c.ok
 
@@ -219,20 +220,12 @@ def _body(c: RunCarry, k: int, triples, src, dst, emask, *,
     valid_s = torch.arange(SPP, device=dev) < n_keep
     cmeta = meta.index_select(0, surv)                       # (SPP, 5)
 
-    # pass 2 over every slot; invalid slots are computed and masked
-    # (JAX skips them with lax.cond, which needs n_keep on the host)
-    new_pol = torch.full((PP, SPP, G, M, K), -1, dtype=torch.int32,
-                         device=dev)
-    new_pmask = torch.zeros((PP, SPP, G, M), dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    parents = LevelOL(c.pol, c.pmask)
-    for s in range(SPP):
-        ch, mk, over = materialize_one(parents, src, dst, emask, cmeta[s],
-                                       max_embeddings=M, out_width=K)
-        v = valid_s[s]
-        new_pol[:, s] = ch.masked_fill_(~v, -1)
-        new_pmask[:, s] = mk & v
-        overflow += over * v
+    # pass 2: one launch over the SPP slots; the slots at or past the
+    # survivor count (read on the device) do no join and come out PAD
+    new_pol, new_pmask, over = materialize_level(
+        cmeta, n_keep, c.pol, c.pmask, src, dst, emask, max_embeddings=M,
+        out_width=K)
+    overflow = over.sum(dtype=torch.int64)
     overflow = mesh.all_reduce(overflow.reshape(1))[0].to(torch.int32)
 
     # 5. run-output bookkeeping at this level's slot
@@ -257,7 +250,6 @@ def _body(c: RunCarry, k: int, triples, src, dst, emask, *,
     c.k = torch.where(live, c.k + 1, c.k)
     c.n_par = torch.where(live, n_keep, c.n_par)
     c.codes = torch.where(live, codes, c.codes)
-    del parents
     c.pol = torch.where(live, new_pol, c.pol, out=new_pol)
     c.pmask = torch.where(live, new_pmask, c.pmask, out=new_pmask)
     c.ok = torch.where(live, c.ok & (flags == 0), c.ok)

@@ -349,22 +349,17 @@ def materialize_ol(
     """Compacted child OLs for the surviving candidates (pass 2).
 
     Returns the next LevelOL (pattern axis = the survivors, ``out_width``
-    vertex slots, default K+1) and the per-candidate overflow count."""
-    outs = [materialize_one(level, eol_src, eol_dst, eol_mask, cand,
-                            max_embeddings=max_embeddings,
-                            out_width=out_width)
-            for cand in _host_rows(meta)]
-    lead = level.ol.shape[:-4]
-    G, _, K = level.ol.shape[-3:]
-    W = K + 1 if out_width is None else out_width
+    vertex slots, default K+1) and the per-candidate overflow count.
+    Every row is a live slot of ``kernels.materialize.materialize_level``:
+    one kernel launch on the card, the ``materialize_one`` loop on the
+    CPU."""
+    # imported here: the kernels' wrappers import this module
+    from ..kernels.materialize import materialize_level
     dev = level.ol.device
-    if not outs:
-        return (LevelOL(torch.full(lead + (0, G, max_embeddings, W), PAD,
-                                   dtype=torch.int32, device=dev),
-                        torch.zeros(lead + (0, G, max_embeddings),
-                                    dtype=torch.bool, device=dev)),
-                torch.zeros(0, dtype=torch.int32, device=dev))
-    ol = torch.stack([o[0] for o in outs], -4)
-    mask = torch.stack([o[1] for o in outs], -3)
-    over = torch.stack([o[2] for o in outs])
+    rows = torch.from_numpy(_host_rows(meta).astype(np.int32).reshape(-1, 5))
+    cmeta = rows.to(dev)
+    n_keep = torch.tensor(rows.shape[0], dtype=torch.int32, device=dev)
+    ol, mask, over = materialize_level(
+        cmeta, n_keep, level.ol, level.mask, eol_src, eol_dst, eol_mask,
+        max_embeddings=max_embeddings, out_width=out_width)
     return LevelOL(ol, mask), over

@@ -19,15 +19,18 @@ each rank runs it over its own block of partitions:
   7. the wire                  (supports | scalars | perm | checksum)
 
 Nothing in it reads a device value back before the wire: the host learns
-the survivor count from the wire itself, so pass 2 runs over all S slots
-and masks the invalid ones (the JAX program's ``lax.cond`` skip has no
-eager counterpart).  Each rank receives exactly ONE device→host transfer
-per level, the int32 wire (see ``repro.core.level_step`` for the
-layouts).  With the sharded layout each rank packs its own shard — its
-Cp/W support slice, the replicated scalars and perm, a shard checksum —
-and the shards are all-gathered on the device, because every rank needs
-the whole wire to drive the next level; the host then verifies each
-shard's checksum.  A rank's shard is laid out as:
+the survivor count only from the wire itself.  So pass 2 is one kernel
+launch over all S slots (``kernels/materialize.py``, ``csrc/
+materialize.cu``) that reads the survivor count on the device: a slot at
+or past it does no join and is written as PAD, the counterpart of the
+JAX program's ``lax.cond`` skip.  On the CPU its plain version runs
+``materialize_one`` per slot and masks those slots.  Each rank receives
+exactly ONE device→host transfer per level, the int32 wire (see
+``repro.core.level_step`` for the layouts).  With the sharded layout
+each rank packs its own shard — its Cp/W support slice, the replicated
+scalars and perm, a shard checksum — and the shards are all-gathered on
+the device, because every rank needs the whole wire to drive the next
+level; the host then verifies each shard's checksum.  A rank's shard is laid out as:
 
   [0:Cp/W]    global support per (padded) candidate of the rank's key
               slice (all Cp with the dense layout) — with ``packed``,
@@ -55,13 +58,13 @@ import torch
 import torch.distributed as dist
 
 from ..kernels.fused_level import DEFAULT_TILE_C
+from ..kernels.materialize import materialize_level
 from ..kernels.ops import (device_local_supports, fused_level_supports,
                            fused_level_supports_packed, is_fused_backend)
 from ..runtime import faults, trace
 from ..runtime.errors import WireIntegrityError
 from .buckets import bucket_size
 from .candgen import pad_schedule, schedule_candidates
-from .embedding import LevelOL, materialize_one
 from .mapreduce import MiningMesh, reduce_supports, worker_imbalance
 
 __all__ = ["LevelWire", "LevelOutputs", "PendingLevel", "dispatch_level",
@@ -367,25 +370,13 @@ def level_program(mesh: MiningMesh, c_real: int, psup: torch.Tensor, *args,
     else:
         rng_bad = torch.zeros((), dtype=torch.int64, device=dev)
 
-    # pass 2 over every compact slot; invalid (cap-padding) slots are
-    # computed and masked to the PAD fill — skipping them would need
-    # n_keep on the host before the wire
-    PP, _, G, _, K = pol.shape
-    Mc = max_embeddings
-    Wk = child_width if child_width is not None else K + 1
-    ol = torch.full((PP, S, G, Mc, Wk), -1, dtype=torch.int32, device=dev)
-    mask = torch.zeros((PP, S, G, Mc), dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    parents = LevelOL(pol, pmask)
+    # pass 2: one launch over the S compact slots; the slots at or past
+    # the survivor count (read on the device) do no join and come out PAD
     with trace.device_span("level.pass2", dev, slots=S):
-        for s in range(S):
-            ch, mk, over = materialize_one(parents, src, dst, emask,
-                                           cmeta[s], max_embeddings=Mc,
-                                           out_width=Wk)
-            v = valid_s[s]
-            ol[:, s] = ch.masked_fill_(~v, -1)
-            mask[:, s] = mk & v
-            overflow += over * v
+        ol, mask, over = materialize_level(
+            cmeta, n_keep, pol, pmask, src, dst, emask,
+            max_embeddings=max_embeddings, out_width=child_width)
+    overflow = over.sum(dtype=torch.int64)
 
     # one all-reduce for the counts every rank must agree on: the
     # overflow, and the audit counts (slice-local when sharded; summing

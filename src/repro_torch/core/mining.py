@@ -1261,8 +1261,10 @@ class Mirage:
         escalatable = (cfg.escalate_on_overflow
                        and M < cfg.max_embeddings_limit)
         retried = bool(n > 0 and (n > S or (overflow > 0 and escalatable)))
-        # pass 2's slots that hold a survivor the next level keeps
-        trace.annotate("level.pass2", useful=0 if retried else min(n, S))
+        # pass 2's slots that hold a survivor the next level keeps, and
+        # those at or past the survivor count, which the kernel skipped
+        trace.annotate("level.pass2", useful=0 if retried else min(n, S),
+                       skipped=S - min(n, S))
         if retried:
             del out, new_pol, new_pmask     # release the discarded store
             with trace.span("level.retry") as sp:

@@ -36,6 +36,7 @@ _ENTRIES = {
     "fused_level_launch": (9, 11),
     "embedding_join_launch": (8, 10),
     "support_count_launch": (4, 5),
+    "materialize_level_launch": (10, 10),
 }
 _lib: ctypes.CDLL | None = None
 
